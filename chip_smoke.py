@@ -1,29 +1,52 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's straggler-telemetry hot loop on one CUDA card.
+"""Drive the PyTorch port's straggler-telemetry paths on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA card
-and the CUDA toolkit (``nvcc``), builds the port's kernels from the checkout's
-sources, and runs these phases, each printing one JSON line that carries the card's
-name and power limit:
+and the CUDA toolkit (``nvcc``), builds the port's three window-reduction kernels
+(``loop``, ``pairwise``, ``radix``) from the checkout's sources, all ``nvcc`` runs
+started together, and runs these phases, each printing one JSON line that carries
+the card's name and power limit:
 
 1. ``device``: the card, its count, and ``nvidia-smi``'s name and power limit.
-2. ``build``: the kernel build's seconds and ptxas register / shared-memory / spill lines.
-3. ``kernel_vs_plain``: the median/weight kernel against its plain PyTorch version on
-   the card, at 4096 ranks x 64 signals x window 32 (the ring's permuted view and a
-   contiguous copy, random counts in [0, W]) and at edge windows W in
-   {1, 7, 32, 128, 256} with ties, all-equal windows, negative values and counts 0
-   and 1. Medians must be equal bit for bit; weights within 1e-5 of the window's
-   sum of absolute values (f32 sums taken in another order).
-4. ``main_path``: ``MeshTelemetry`` at 4096 x 64 x 32 on the card, fed the seeded
-   telemetry of ``bench.py`` (5% slow ranks at 1.6x): W pushes, a report, W + 5
-   more pushes (the ring wraps), a second report. The kernel's launch count must
+2. ``build``: each kernel's build seconds and ptxas register / shared-memory / spill
+   lines.
+3. ``kernel_vs_plain``: every kernel against its own plain PyTorch version on the
+   card. ``loop`` at config 4 (4096 ranks x 64 signals x window 32; the ring's
+   permuted view and a contiguous copy, random counts in [0, W]) and at edge windows
+   W in {1, 7, 32, 128, 256}; ``pairwise`` at config 4 and ``radix`` at the long
+   window's full size (4096 x 64 x 512), each on the view and a copy; both at edge
+   windows W in {1, 7, 32, 129, 256, 512, 1024}. Edge windows hold ties, all-equal
+   windows, negative values, -0.0 and counts 0 and 1. Medians must be equal bit for
+   bit, compared as int32 (the modes differ in the sign of a zero median, so each
+   kernel is held to its own plain version); across modes they must be equal by
+   value. Weights must lie within ``weight_rtol(W)`` of the window's sum of |x|.
+4. ``main_path``: ``MeshTelemetry`` at config 4 on the card, fed the seeded telemetry
+   of ``bench.py`` (5% slow ranks at 1.6x): W pushes, a report, W + 5 more pushes
+   (the ring wraps), a second report. The auto-selected kernel's launch count must
    rise; the straggler mask must equal the sort path's on the card and the plain
    path's on the CPU; F1 against the seeded truth is printed.
-5. ``times``: CUDA-event times after a warm-up at 4096 x 64 x 32, L2 flushed before
-   each timed reduction: push per step, score per report, the kernel, its plain
-   version, the sort-based masked median + total, and ``torch.nanquantile`` +
-   ``torch.nansum`` as the library yardstick (never called by the port).
-6. ``breakdown``: ``torch.profiler`` device time by kernel over a few reports.
+5. ``long_window_path``: ``MeshTelemetry`` at 4096 x 64 x window 512 (a 512 MiB ring)
+   on the card, fed the same generator's telemetry at W = 512: 512 pushes and a
+   report, then 300 pushes and a report over windows filled 300 of 512. The kernel
+   mode must be ``radix`` and its launch count must rise; both straggler masks must
+   equal the sort path's on the card; F1 against the seeded truth must reach 0.99.
+   The same run at 256 ranks must match the CPU's plain path (the plain radix is
+   slow on the host at full width).
+6. ``explicit_mode_path``: the modes that auto-selection ran on neither path above
+   (``pairwise`` always), at config 4 as a caller who asks for one reaches it:
+   ``fused_median_weights(..., mode=...)`` on the ring, then
+   ``ReportGenerator.generate_summary_report``. Its launch count must rise and its
+   mask equal the main path's first report's.
+7. ``sweep``: ``tpu_resiliency_torch.ops.kernel_sweep`` over W in {32 .. 1024} x
+   R in {256, 1024, 4096} (S = 64): each kernel and the sort path, and the loop cap
+   and radix verdict it derives, beside the defaults the package carries.
+8. ``times``: CUDA-event times after a warm-up, L2 flushed before each timed
+   reduction, at config 4 and at W = 512: push per step, score per report, the
+   kernels, their plain versions, the sort-based masked median + total, and
+   ``torch.nanquantile`` + ``torch.nansum`` as the library yardstick (never called
+   by the port).
+9. ``breakdown``: ``torch.profiler`` device time by kernel over a few reports at
+   config 4 and at W = 512.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
@@ -41,36 +64,65 @@ from pathlib import Path
 
 import numpy as np
 
-R, S, W = 4096, 64, 32
+R, S, W = 4096, 64, 32  # config 4
+LONG_W = 512  # the long-window path
+LONG_PARTIAL = 300  # pushes before its second report
+CPU_RANKS = 256  # ranks of the CPU comparison of the long-window run
 SLOW_FRACTION = 0.05
 SLOWDOWN = 1.6
 EDGE_WINDOWS = (1, 7, 32, 128, 256)
+MODE_EDGE_WINDOWS = (1, 7, 32, 129, 256, 512, 1024)
 EDGE_RANKS = EDGE_SIGNALS = 64
-WEIGHT_RTOL = 1e-5  # of the window's sum of |x|: reordered f32 sums, W <= 256
 REPORT_INTERVAL = 100  # steps per report for the amortised per-step cost
-# H100 SXM published peaks (NVIDIA data sheet), used for the kernel's bound.
+# H100 SXM published peaks (NVIDIA data sheet), used for the kernels' bounds. The
+# radix key tests are 32-bit integer operations; the f32 non-tensor rate is the one
+# 32-bit non-tensor rate the sheet gives.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 L2_FLUSH_BYTES = 64 << 20  # larger than the 50 MB L2
 
-KERNEL = {
-    "name": "median_weights_loop",
-    "route": "cuda",
-    "source": "tpu_resiliency_torch/csrc/median_weights.cu",
-    "replaces": "tpu_resiliency/ops/scoring_pallas.py:42",
+
+def weight_rtol(w: int) -> float:
+    """Weight tolerance, as a share of the window's sum of |x|. Kernel and plain
+    version sum the same W terms in other orders. Up to W = 256 that stays within
+    1e-5 (the tolerance config 4's and the edge windows' runs were argued and measured
+    at); past it the reordering error of two f32 sums of W terms grows to about
+    W * 2^-24 of the sum (3.1e-5 at W = 512, 6.1e-5 at W = 1024)."""
+    return 1e-5 if w <= 256 else w * 2.0**-24
+
+
+KERNELS = {
+    "loop": {
+        "name": "median_weights_loop",
+        "route": "cuda",
+        "source": "tpu_resiliency_torch/csrc/median_weights.cu",
+        "replaces": "tpu_resiliency/ops/scoring_pallas.py:42",
+    },
+    "pairwise": {
+        "name": "median_weights_pairwise",
+        "route": "cuda",
+        "source": "tpu_resiliency_torch/csrc/median_weights_pairwise.cu",
+        "replaces": "tpu_resiliency/ops/scoring_pallas.py:84",
+    },
+    "radix": {
+        "name": "median_weights_radix",
+        "route": "cuda",
+        "source": "tpu_resiliency_torch/csrc/median_weights_radix.cu",
+        "replaces": "tpu_resiliency/ops/scoring_pallas.py:139",
+    },
 }
 
 
-def make_telemetry(seed=0):
-    """``bench.py``'s seeded config-4 telemetry: windows [R, S, W], full counts, and
-    the truth mask of the slow ranks."""
+def make_telemetry(seed=0, w=W):
+    """``bench.py``'s seeded config-4 telemetry at window ``w``: windows [R, S, w],
+    full counts, and the truth mask of the slow ranks."""
     rng = np.random.default_rng(seed)
     base = rng.uniform(0.8, 1.2, size=(1, S, 1)).astype(np.float32)
-    data = base * (1.0 + 0.05 * rng.standard_normal((R, S, W)).astype(np.float32))
+    data = base * (1.0 + 0.05 * rng.standard_normal((R, S, w)).astype(np.float32))
     n_slow = int(R * SLOW_FRACTION)
     slow_ranks = rng.choice(R, size=n_slow, replace=False)
     data[slow_ranks] *= SLOWDOWN
-    counts = np.full((R, S), W, dtype=np.int32)
+    counts = np.full((R, S), w, dtype=np.int32)
     truth = np.zeros(R, dtype=bool)
     truth[slow_ranks] = True
     return data, counts, truth
@@ -86,17 +138,25 @@ def f1(pred_mask, truth):
 
 
 def edge_case(w, seed):
-    """Rounded normals (negative values, many ties), all-equal rows, and counts
+    """Rounded normals (negative values, -0.0, many ties), all-equal rows, and counts
     covering 0, 1, partial and full windows."""
     rng = np.random.default_rng(seed)
     data = np.round(rng.standard_normal((EDGE_RANKS, EDGE_SIGNALS, w)), 1).astype(np.float32)
     data[1] = 3.0
     data[4] = -2.5
+    data[5] = -0.0
     counts = rng.integers(0, w + 1, size=(EDGE_RANKS, EDGE_SIGNALS)).astype(np.int32)
     counts[0] = 0
     counts[2] = 1
     counts[3] = w
+    counts[5] = w
     return data, counts
+
+
+def flagged(report, n_ranks):
+    pred = np.zeros(n_ranks, dtype=bool)
+    pred[[sid.rank for sid in report.identify_stragglers().by_perf]] = True
+    return pred
 
 
 class Smoke:
@@ -108,22 +168,6 @@ class Smoke:
         print(json.dumps({"phase": phase, "card": self.card, **fields}), flush=True)
 
     # -- timing ------------------------------------------------------------
-
-    def time_each(self, fn, reps: int, flush) -> float:
-        """Median ms of ``reps`` calls, each timed with its own CUDA events after
-        the L2 cache was flushed (a report finds the ring cold)."""
-        torch = self.torch
-        for _ in range(3):
-            fn()
-        starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-        for a, b in zip(starts, ends):
-            flush.zero_()
-            a.record()
-            fn()
-            b.record()
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in zip(starts, ends))
 
     def time_loop(self, fn, reps: int) -> float:
         """Mean ms per call over ``reps`` back-to-back calls between two events."""
@@ -141,27 +185,26 @@ class Smoke:
 
     # -- checks ------------------------------------------------------------
 
-    def compare(self, label, data, counts) -> float:
-        """Kernel vs plain version on the same card tensors; returns the largest
-        absolute weight error. Medians must be equal bit for bit."""
-        from tpu_resiliency_torch.ops.scoring_kernels import (
-            fused_median_weights,
-            median_weights_reference,
-        )
+    def compare(self, label, mode, data, counts):
+        """Kernel of ``mode`` vs its plain version on the same card tensors. Medians
+        must be equal bit for bit (as int32); returns ``(largest absolute weight
+        error, the kernel's medians)``."""
+        from tpu_resiliency_torch.ops.scoring_kernels import PLAIN_VERSIONS, fused_median_weights
         from tpu_resiliency_torch.telemetry.scoring import masked_total
 
         torch = self.torch
-        med_k, wt_k = fused_median_weights(data, counts)
-        med_p, wt_p = median_weights_reference(data, counts)
+        med_k, wt_k = fused_median_weights(data, counts, mode=mode)
+        med_p, wt_p = PLAIN_VERSIONS[mode](data, counts)
         torch.cuda.synchronize()
+        if not torch.equal(med_k.view(torch.int32), med_p.view(torch.int32)):
+            bad = int((med_k.view(torch.int32) != med_p.view(torch.int32)).sum())
+            raise AssertionError(f"{label} {mode}: {bad} medians differ from the plain version")
         abs_sum = masked_total(data.abs(), counts)
         err = (wt_k - wt_p).abs()
-        if not torch.equal(med_k, med_p):
-            bad = int((med_k != med_p).sum())
-            raise AssertionError(f"{label}: {bad} medians differ from the plain version")
-        if not bool((err <= WEIGHT_RTOL * abs_sum).all()):
-            raise AssertionError(f"{label}: weights off by up to {float(err.max())}")
-        return float(err.max())
+        rtol = weight_rtol(data.shape[-1])
+        if not bool((err <= rtol * abs_sum).all()):
+            raise AssertionError(f"{label} {mode}: weights off by up to {float(err.max())}")
+        return float(err.max()), med_k
 
 
 def main() -> int:
@@ -178,17 +221,17 @@ def main() -> int:
         print("chip_smoke: the port package does not lie beside this script", file=sys.stderr)
         return 1
 
-    from tpu_resiliency_torch.ops import _build
-    from tpu_resiliency_torch.ops.scoring_kernels import (
-        KERNEL_NAME,
-        block_threads,
-        fused_median_weights,
-        median_weights_reference,
-    )
+    from tpu_resiliency_torch.ops import _build, kernel_sweep
+    from tpu_resiliency_torch.ops import scoring_kernels as sk
     from tpu_resiliency_torch.platform.device import card_name_and_power_limit
+    from tpu_resiliency_torch.telemetry.reporting import ReportGenerator
     from tpu_resiliency_torch.telemetry.scoring import masked_median, masked_total
     from tpu_resiliency_torch.telemetry.sharded import MeshTelemetry
 
+    fused_median_weights = sk.fused_median_weights
+    # Median ms of reps calls, each between its own CUDA events after the L2 cache
+    # was flushed (a report finds the ring cold).
+    time_each = kernel_sweep.time_ms
     dev = torch.device("cuda")
     card = card_name_and_power_limit()
     smoke = Smoke(torch, card)
@@ -197,17 +240,23 @@ def main() -> int:
     count = torch.cuda.device_count()
     smoke.emit("device", kind=kind, count=count, torch=torch.__version__,
                cuda=torch.version.cuda, python=sys.version.split()[0])
+    t_start = time.perf_counter()
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build([KERNEL_NAME])
-    built = _build.load(KERNEL_NAME)
-    threads = block_threads(W)
-    smoke.emit("build", kernel=KERNEL_NAME, build_seconds=built.build_seconds,
-               wall_seconds=time.perf_counter() - t0, ptxas=list(built.ptxas),
-               threads_per_block=threads, dynamic_shared_bytes_per_block=threads * W * 4)
+    _build.build(sk.KERNEL_NAMES.values())
+    built = {mode: _build.load(name) for mode, name in sk.KERNEL_NAMES.items()}
+    smoke.emit(
+        "build", wall_seconds=time.perf_counter() - t0,
+        kernels={mode: {"source": name, "build_seconds": b.build_seconds,
+                        "ptxas": list(b.ptxas)}
+                 for (mode, name), b in zip(sk.KERNEL_NAMES.items(), built.values())},
+        loop_threads_per_block={w: sk.block_threads(w) for w in (W, LONG_W)},
+        tile_dynamic_shared_bytes_per_block={w: w * (sk.TILE_WINDOWS + 1) * 4
+                                             for w in (W, LONG_W, 1024)},
+    )
 
-    # 3. kernel vs plain ------------------------------------------------------
+    # 3. kernel vs plain -------------------------------------------------------
     data_np, _, truth = make_telemetry(seed=0)
     rng = np.random.default_rng(1)
     rand_counts = torch.tensor(
@@ -215,66 +264,96 @@ def main() -> int:
     )
     ring = torch.tensor(np.ascontiguousarray(data_np.transpose(2, 0, 1)), device=dev)
     ring_view = ring.permute(1, 2, 0)  # what MeshTelemetry.score hands the kernel
-    checks = {
-        "config4_ring_view": smoke.compare("config4 ring view", ring_view, rand_counts),
-        "config4_contiguous": smoke.compare(
-            "config4 contiguous", ring_view.contiguous(), rand_counts
-        ),
-    }
+    errs = {mode: {} for mode in sk.MODES}
+    by_value = {}
+
+    def check_modes(label, modes, data, counts):
+        meds = {}
+        for mode in modes:
+            errs[mode][label], meds[mode] = smoke.compare(label, mode, data, counts)
+        first = meds[modes[0]]
+        for mode in modes[1:]:
+            if not torch.equal(meds[mode], first):  # by value: -0.0 == +0.0
+                raise AssertionError(f"{label}: {mode} medians differ in value from {modes[0]}")
+        by_value[label] = list(modes)
+
+    for label, d in (("config4_ring_view", ring_view), ("config4_contiguous", ring_view.contiguous())):
+        check_modes(label, ("loop", "pairwise", "radix"), d, rand_counts)
     for i, w in enumerate(EDGE_WINDOWS):
         d, c = edge_case(w, seed=10 + i)
-        checks[f"edge_w{w}"] = smoke.compare(
-            f"edge W={w}", torch.tensor(d, device=dev), torch.tensor(c, device=dev)
-        )
-    max_abs_err = max(checks.values())
-    smoke.emit("kernel_vs_plain", medians_equal=True, weight_rtol_of_abs_sum=WEIGHT_RTOL,
-               max_abs_weight_err=checks)
+        check_modes(f"edge_w{w}", ("loop",), torch.tensor(d, device=dev), torch.tensor(c, device=dev))
+    for i, w in enumerate(MODE_EDGE_WINDOWS):
+        d, c = edge_case(w, seed=30 + i)
+        modes = tuple(m for m in ("pairwise", "radix") if w <= sk.MODE_MAX_WINDOW[m])
+        check_modes(f"edge_w{w}", modes + ("loop",) if w <= 256 else modes,
+                    torch.tensor(d, device=dev), torch.tensor(c, device=dev))
 
-    # 4. main path ------------------------------------------------------------
+    long_np, _, long_truth = make_telemetry(seed=0, w=LONG_W)
+    long_ring = torch.tensor(np.ascontiguousarray(long_np.transpose(2, 0, 1)), device=dev)
+    del long_np
+    long_view = long_ring.permute(1, 2, 0)
+    long_counts = torch.tensor(
+        rng.integers(0, LONG_W + 1, size=(R, S)).astype(np.int32), device=dev
+    )
+    for label, d in (("long_ring_view", long_view), ("long_contiguous", long_view.contiguous())):
+        errs["radix"][label], _ = smoke.compare(label, "radix", d, long_counts)
+    torch.cuda.empty_cache()
+    max_abs_err = {mode: max(e.values()) for mode, e in errs.items()}
+    smoke.emit("kernel_vs_plain", medians_equal_as_int32=True, equal_by_value_across=by_value,
+               weight_rtol_of_abs_sum={w: weight_rtol(w) for w in (256, 512, 1024)},
+               max_abs_weight_err=errs)
+
+    # 4. main path (config 4) --------------------------------------------------
     names = tuple(f"sig{s}" for s in range(S))
     rows = ring  # [W, R, S]: row i is step i's [R, S] timings, already on the card
+    path_launches = dict.fromkeys(sk.MODES, 0)
 
     def drive(mt, rows):
         state = mt.init_state()
-        for i in range(W):
+        w = rows.shape[0]
+        for i in range(w):
             mt.push(state, rows[i])
         state, sc1 = mt.score(state)
         rep1 = mt.materialize(sc1)
-        for i in range(W + 5):  # more than W pushes: the ring wraps
-            mt.push(state, rows[i % W])
+        for i in range(w + 5):  # more than W pushes: the ring wraps
+            mt.push(state, rows[i % w])
         state, sc2 = mt.score(state)
         rep2 = mt.materialize(sc2)
         return state, (sc1, sc2), (rep1, rep2)
 
-    fused_median_weights.launches = 0
+    def check_masks(label, scores, other, other_label, n_reports=2):
+        perf_err = {}
+        for k in range(n_reports):
+            a, b = scores[k], other[k]
+            if not torch.equal(a.straggler.cpu(), b.straggler.cpu()):
+                raise AssertionError(f"{label} report {k + 1}: straggler mask differs from {other_label}")
+            diff = (a.perf.cpu() - b.perf.cpu()).abs()
+            if not bool((diff <= 1e-5 * b.perf.cpu().abs()).all()):
+                raise AssertionError(f"{label} report {k + 1}: perf differs from {other_label} by {diff.max()}")
+            perf_err[f"{other_label}_report{k + 1}"] = float(diff.max())
+        return perf_err
+
     mt = MeshTelemetry(R, signal_names=names, window=W)
     if not mt.use_kernel or mt.device.type != "cuda":
-        raise AssertionError(f"main path is not on the kernel: {mt.device}, {mt.use_kernel}")
+        raise AssertionError(f"main path is not on a kernel: {mt.device}, {mt.kernel_mode}")
+    sk.reset_launches()
     state, scores, reports = drive(mt, rows)
     torch.cuda.synchronize()
-    launches = fused_median_weights.launches
-    if launches < 1:
-        raise AssertionError("the main path launched the kernel no time")
+    launches = dict(fused_median_weights.launches_by_mode)
+    if launches[mt.kernel_mode] < 1:
+        raise AssertionError(f"the main path launched the {mt.kernel_mode} kernel no time")
+    for mode, n in launches.items():
+        path_launches[mode] += n
 
     mt_sort = MeshTelemetry(R, signal_names=names, window=W, use_kernel=False)
     _, scores_sort, _ = drive(mt_sort, rows)
     mt_cpu = MeshTelemetry(R, signal_names=names, window=W, device="cpu")
     _, scores_cpu, _ = drive(mt_cpu, rows.cpu())
-
-    perf_err = {}
-    for label, other in (("sort_on_card", scores_sort), ("plain_on_cpu", scores_cpu)):
-        for k in range(2):
-            a, b = scores[k], other[k]
-            if not torch.equal(a.straggler.cpu(), b.straggler.cpu()):
-                raise AssertionError(f"report {k + 1}: straggler mask differs from {label}")
-            diff = (a.perf.cpu() - b.perf.cpu()).abs()
-            if not bool((diff <= 1e-5 * b.perf.cpu().abs()).all()):
-                raise AssertionError(f"report {k + 1}: perf differs from {label} by {diff.max()}")
-            perf_err[f"{label}_report{k + 1}"] = float(diff.max())
+    perf_err = {**check_masks("main", scores, scores_sort, "sort_on_card"),
+                **check_masks("main", scores, scores_cpu, "plain_on_cpu")}
 
     rep1, rep2 = reports
-    pred = np.zeros(R, dtype=bool)
-    pred[[sid.rank for sid in rep1.identify_stragglers().by_perf]] = True
+    pred = flagged(rep1, R)
     f1_1 = f1(pred, truth)
     perf1 = np.array([rep1.perf_scores[r] for r in range(R)])
     ewma1 = np.array([rep1.ewma_scores[r] for r in range(R)])
@@ -289,89 +368,213 @@ def main() -> int:
         raise AssertionError("the historical minimum is not finite after two reports")
     if f1_1 < 0.9:
         raise AssertionError(f"F1 {f1_1} against the seeded truth is below 0.9")
-    smoke.emit("main_path", ranks=R, signals=S, window=W, launches=launches,
-               f1=f1_1, flagged=int(pred.sum()), truth=int(truth.sum()),
+    smoke.emit("main_path", ranks=R, signals=S, window=W, kernel_mode=mt.kernel_mode,
+               launches=launches, f1=f1_1, flagged=int(pred.sum()), truth=int(truth.sum()),
                perf_max_abs_diff=perf_err, ewma_slow_mean=[float(ewma1[truth].mean()),
                                                           float(ewma2[truth].mean())])
 
-    # 5. times ----------------------------------------------------------------
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    mt_t = MeshTelemetry(R, signal_names=names, window=W)
-    st = mt_t.init_state()
-    for i in range(W):
-        mt_t.push(st, rows[i])
-    full_view = st.data.permute(1, 2, 0)
-    full_counts = st.counts.clone()
-    push_ms = smoke.time_loop(lambda i: mt_t.push(st, rows[i % W]), reps=500)
-    st.counts.copy_(full_counts)
-    score_ms = smoke.time_each(lambda: mt_t.score(st), reps=30, flush=flush)
-    wall = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        mt_t.generate_report(st)
-        wall.append((time.perf_counter() - t0) * 1e3)
-    kernel_ms = smoke.time_each(lambda: fused_median_weights(full_view, full_counts),
-                                reps=50, flush=flush)
-    plain_ms = smoke.time_each(lambda: median_weights_reference(full_view, full_counts),
-                               reps=10, flush=flush)
-    sort_ms = smoke.time_each(
-        lambda: (masked_median(full_view, full_counts), masked_total(full_view, full_counts)),
-        reps=20, flush=flush,
-    )
-    valid = torch.arange(W, device=dev) < full_counts[..., None]
-    x_nan = torch.where(valid, full_view, float("nan")).contiguous()
-    library_ms = smoke.time_each(
-        lambda: (torch.nanquantile(x_nan, 0.5, dim=-1, interpolation="midpoint"),
-                 torch.nansum(x_nan, dim=-1)),
-        reps=20, flush=flush,
-    )
-    bytes_moved = (full_view.numel() + full_counts.numel() + 2 * R * S) * 4
-    pair_compares = R * S * W * W
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = pair_compares / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    smoke.emit(
-        "times", ranks=R, signals=S, window=W, push_ms_per_step=push_ms,
-        score_ms_per_report=score_ms, report_wall_ms_median=statistics.median(wall),
-        amortised_ms_per_step=push_ms + score_ms / REPORT_INTERVAL,
-        report_interval=REPORT_INTERVAL, kernel_ms=kernel_ms, plain_ms=plain_ms,
-        sort_ms=sort_ms, nanquantile_ms=library_ms, bytes=bytes_moved,
-        pair_compares=pair_compares, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
-        bound_ms=bound_ms, bound_by=bound_by,
-    )
+    # 5. long-window path ------------------------------------------------------
+    def drive_long(mt, rows):
+        state = mt.init_state()
+        for i in range(LONG_W):
+            mt.push(state, rows[i])
+        state, sc1 = mt.score(state)
+        rep1 = mt.materialize(sc1)
+        for i in range(LONG_PARTIAL):  # a window filled 300 of 512
+            mt.push(state, rows[i])
+        counts2 = int(state.counts.max())
+        state, sc2 = mt.score(state)
+        rep2 = mt.materialize(sc2)
+        return counts2, (sc1, sc2), (rep1, rep2)
 
-    # 6. breakdown ------------------------------------------------------------
+    mt_long = MeshTelemetry(R, signal_names=names, window=LONG_W)
+    if mt_long.kernel_mode != "radix":
+        raise AssertionError(f"the long-window path runs {mt_long.kernel_mode}, not radix")
+    sk.reset_launches()
+    filled2, long_scores, long_reports = drive_long(mt_long, long_ring)
+    torch.cuda.synchronize()
+    long_launches = dict(fused_median_weights.launches_by_mode)
+    if long_launches["radix"] < 1:
+        raise AssertionError("the long-window path launched the radix kernel no time")
+    for mode, n in long_launches.items():
+        path_launches[mode] += n
+    if filled2 != LONG_PARTIAL:
+        raise AssertionError(f"the second long-window report saw counts {filled2}")
+
+    mt_long_sort = MeshTelemetry(R, signal_names=names, window=LONG_W, use_kernel=False)
+    _, long_sort, _ = drive_long(mt_long_sort, long_ring)
+    long_err = check_masks("long", long_scores, long_sort, "sort_on_card")
+    long_f1 = [f1(flagged(rep, R), long_truth) for rep in long_reports]
+    if min(long_f1) < 0.99:
+        raise AssertionError(f"long-window F1 {long_f1} against the seeded truth is below 0.99")
+    small_rows = long_ring[:, :CPU_RANKS].contiguous()
+    mt_small = MeshTelemetry(CPU_RANKS, signal_names=names, window=LONG_W)
+    mt_small_cpu = MeshTelemetry(CPU_RANKS, signal_names=names, window=LONG_W,
+                                 device="cpu", use_kernel=True)
+    _, small_scores, _ = drive_long(mt_small, small_rows)
+    t0 = time.perf_counter()
+    _, small_cpu, _ = drive_long(mt_small_cpu, small_rows.cpu())
+    cpu_seconds = time.perf_counter() - t0
+    long_err.update(check_masks("long 256 ranks", small_scores, small_cpu, "plain_on_cpu_256"))
+    del mt_long_sort, long_sort, small_rows
+    torch.cuda.empty_cache()
+    smoke.emit("long_window_path", ranks=R, signals=S, window=LONG_W,
+               ring_bytes=long_ring.numel() * 4, kernel_mode=mt_long.kernel_mode,
+               launches=long_launches, report2_counts=filled2, f1=long_f1,
+               flagged=[int(flagged(rep, R).sum()) for rep in long_reports],
+               truth=int(long_truth.sum()), perf_max_abs_diff=long_err,
+               cpu_ranks=CPU_RANKS, cpu_kernel_mode=mt_small_cpu.kernel_mode,
+               cpu_run_seconds=cpu_seconds)
+
+    # 6. explicit modes ----------------------------------------------------------
+    explicit = {}
+    mt_rows = MeshTelemetry(R, signal_names=names, window=W, use_kernel=False)
+    st_rows = mt_rows.init_state()
+    for i in range(W):
+        mt_rows.push(st_rows, rows[i])
+    for mode in [m for m in sk.MODES if path_launches[m] == 0]:
+        gen = ReportGenerator(R, S, device=dev)
+        sk.reset_launches()
+        med, wt = fused_median_weights(st_rows.data.permute(1, 2, 0), st_rows.counts, mode=mode)
+        rep = gen.generate_summary_report(med, wt, st_rows.counts, names)
+        torch.cuda.synchronize()
+        n = fused_median_weights.launches_by_mode[mode]
+        if n < 1:
+            raise AssertionError(f"the explicit {mode} path launched its kernel no time")
+        path_launches[mode] += n
+        pred_m = flagged(rep, R)
+        if not np.array_equal(pred_m, flagged(rep1, R)):
+            raise AssertionError(f"the explicit {mode} report flags other ranks than the main path")
+        explicit[mode] = {"launches": n, "f1": f1(pred_m, truth), "flagged": int(pred_m.sum())}
+    smoke.emit("explicit_mode_path", ranks=R, signals=S, window=W, modes=explicit)
+
+    # 7. sweep -------------------------------------------------------------------
+    t0 = time.perf_counter()
+    sweep = kernel_sweep.run()
+    smoke.emit("sweep", seconds=time.perf_counter() - t0, **sweep,
+               defaults={"loop_max_window": sk.DEFAULT_MAX_WINDOW,
+                         "radix_auto": sk.DEFAULT_RADIX_AUTO})
+
+    # 8. times -------------------------------------------------------------------
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def library(view, counts):
+        valid = torch.arange(view.shape[-1], device=dev) < counts[..., None]
+        x_nan = torch.where(valid, view, float("nan")).contiguous()
+        return time_each(
+            lambda: (torch.nanquantile(x_nan, 0.5, dim=-1, interpolation="midpoint"),
+                     torch.nansum(x_nan, dim=-1)),
+            reps=10, flush=flush,
+        )
+
+    def bounds(view, ops):
+        r, s, w = view.shape
+        bytes_moved = (r * s * w + r * s + 2 * r * s) * 4
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        return {"bytes": bytes_moved, "ops": ops, "bytes_bound_ms": bytes_ms,
+                "ops_bound_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+    def path_times(mt, rows, reps_push):
+        st = mt.init_state()
+        w = rows.shape[0]
+        for i in range(w):
+            mt.push(st, rows[i])
+        full_counts = st.counts.clone()
+        push_ms = smoke.time_loop(lambda i: mt.push(st, rows[i % w]), reps=reps_push)
+        st.counts.copy_(full_counts)
+        score_ms = time_each(lambda: mt.score(st), reps=20, flush=flush)
+        wall = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            mt.generate_report(st)
+            wall.append((time.perf_counter() - t0) * 1e3)
+        return st, {"push_ms_per_step": push_ms, "score_ms_per_report": score_ms,
+                    "report_wall_ms_median": statistics.median(wall),
+                    "amortised_ms_per_step": push_ms + score_ms / REPORT_INTERVAL}
+
+    mt_t = MeshTelemetry(R, signal_names=names, window=W)
+    st, t4 = path_times(mt_t, rows, reps_push=500)
+    view4, counts4 = st.data.permute(1, 2, 0), st.counts
+    kernel_ms = {m: time_each(lambda m=m: fused_median_weights(view4, counts4, mode=m),
+                                    reps=50, flush=flush) for m in ("loop", "pairwise")}
+    plain_ms = {m: time_each(lambda m=m: sk.PLAIN_VERSIONS[m](view4, counts4),
+                                   reps=10, flush=flush) for m in ("loop", "pairwise")}
+    sort4_ms = time_each(
+        lambda: (masked_median(view4, counts4), masked_total(view4, counts4)), reps=20, flush=flush
+    )
+    library_ms = {"config4": library(view4, counts4)}
+    bound = {m: bounds(view4, R * S * W * W) for m in ("loop", "pairwise")}
+    smoke.emit("times", ranks=R, signals=S, window=W, report_interval=REPORT_INTERVAL, **t4,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, sort_ms=sort4_ms,
+               nanquantile_ms=library_ms["config4"], bound={"loop_and_pairwise": bound["loop"]})
+    mt_lt = MeshTelemetry(R, signal_names=names, window=LONG_W)
+    st_l, tl = path_times(mt_lt, long_ring, reps_push=200)
+    view_l, counts_l = st_l.data.permute(1, 2, 0), st_l.counts
+    kernel_ms["radix"] = time_each(
+        lambda: fused_median_weights(view_l, counts_l, mode="radix"), reps=30, flush=flush
+    )
+    plain_ms["radix"] = time_each(
+        lambda: sk.PLAIN_VERSIONS["radix"](view_l, counts_l), reps=5, flush=flush
+    )
+    sortl_ms = time_each(
+        lambda: (masked_median(view_l, counts_l), masked_total(view_l, counts_l)),
+        reps=10, flush=flush,
+    )
+    library_ms["long"] = library(view_l, counts_l)
+    bound["radix"] = bounds(view_l, 64 * LONG_W * R * S)
+    swept = sweep["results_ms"][f"{R}x{LONG_W}"]
+    smoke.emit("times", ranks=R, signals=S, window=LONG_W, report_interval=REPORT_INTERVAL,
+               **tl, kernel_mode=mt_lt.kernel_mode, radix_kernel_ms=kernel_ms["radix"],
+               radix_plain_ms=plain_ms["radix"], sort_ms=sortl_ms,
+               nanquantile_ms=library_ms["long"], bound=bound["radix"],
+               loop_and_pairwise_kernel_ms_from_sweep={m: swept[m] for m in ("loop", "pairwise")})
+
+    # 9. breakdown ---------------------------------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            mt_t.score(st)
-        torch.cuda.synchronize()
-    rows_by_time = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "cuda_time_total", 0)
-        if dev_us and evt.key and not evt.key.startswith("aten::"):
-            rows_by_time.append((evt.key, dev_us / 5 / 1e3, evt.count // 5))
-    rows_by_time.sort(key=lambda r: -r[1])
-    busy_ms = sum(ms for _, ms, _ in rows_by_time)
-    smoke.emit(
-        "breakdown", reports=5, device_busy_ms_per_report=busy_ms or "not measured",
-        # share of the event-timed report (phase 5) in which the card ran no kernel
-        idle_share=1.0 - busy_ms / score_ms if busy_ms else "not measured",
-        device_ms_per_report_by_kernel=[
-            {"kernel": k[:80], "ms": ms, "launches": n} for k, ms, n in rows_by_time[:12]
-        ] or "not measured",
-    )
+    def breakdown(label, mt, st, score_ms, reports=5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reports):
+                mt.score(st)
+            torch.cuda.synchronize()
+        rows_by_time = []
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "cuda_time_total", 0)
+            if dev_us and evt.key and not evt.key.startswith("aten::"):
+                rows_by_time.append((evt.key, dev_us / reports / 1e3, evt.count // reports))
+        rows_by_time.sort(key=lambda r: -r[1])
+        busy_ms = sum(ms for _, ms, _ in rows_by_time)
+        smoke.emit(
+            "breakdown", path=label, reports=reports,
+            device_busy_ms_per_report=busy_ms or "not measured",
+            # share of the event-timed report (phase times) in which the card ran no kernel
+            idle_share=1.0 - busy_ms / score_ms if busy_ms else "not measured",
+            device_ms_per_report_by_kernel=[
+                {"kernel": k[:80], "ms": ms, "launches": n} for k, ms, n in rows_by_time[:12]
+            ] or "not measured",
+        )
 
-    print(json.dumps({"kernels": [dict(
-        KERNEL, launches=launches, max_abs_err=max_abs_err, ms=kernel_ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        verdict="medians equal bit for bit; weights within 1e-5 of the window's sum of |x|",
-        card=card,
-    )]}), flush=True)
+    breakdown("config4", mt_t, st, t4["score_ms_per_report"])
+    breakdown("long_window", mt_lt, st_l, tl["score_ms_per_report"], reports=3)
+
+    kernels = []
+    for mode in sk.MODES:
+        b = bound[mode]
+        kernels.append(dict(
+            KERNELS[mode], launches=path_launches[mode], max_abs_err=max_abs_err[mode],
+            ms=kernel_ms[mode], plain_ms=plain_ms[mode], bound_ms=b["bound_ms"],
+            bound_by=b["bound_by"],
+            library_ms=library_ms["long" if mode == "radix" else "config4"],
+            shape=[R, S, LONG_W if mode == "radix" else W],
+            verdict="medians equal bit for bit as int32; weights within weight_rtol(W) "
+                    "of the window's sum of |x|",
+            card=card,
+        ))
+    print(json.dumps({"kernels": kernels, "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

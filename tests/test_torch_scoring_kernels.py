@@ -2,10 +2,12 @@
 against the JAX package's Pallas ``loop`` kernel, run in interpret mode on the CPU.
 
 Inputs are made from a numpy seed and handed to both. Medians are order statistics
-and must be equal bit for bit (+inf included). Weights are f32 sums taken in another
-order: each must lie within 1e-5 of its window's sum of absolute values (for all-
-positive windows that is rtol 1e-5). Tests marked ``gpu`` hold the CUDA kernel
-against the plain version on the card and skip where there is none.
+and must be equal bit for bit, compared as int32 (+inf and signed zeros included).
+Weights are f32 sums taken in another order: each must lie within 1e-5 of its
+window's sum of absolute values (for all-positive windows that is rtol 1e-5). Tests
+marked ``gpu`` hold the CUDA kernel against the plain version on the card and skip
+where there is none. The ``pairwise`` and ``radix`` modes are held against their JAX
+kernels in ``test_torch_scoring_modes.py``.
 """
 
 import json
@@ -37,6 +39,10 @@ def _windows(seed, r, s, w):
     return data, counts
 
 
+def _bits(t):
+    return np.asarray(t, dtype=np.float32).view(np.int32)
+
+
 def _assert_weights_close(got, want, data, counts):
     valid = np.arange(data.shape[-1]) < counts[..., None]
     abs_sum = np.where(valid, np.abs(data), 0.0).sum(-1)
@@ -55,9 +61,11 @@ def test_plain_version_matches_pallas_loop_kernel(w):
     r, s = 8, 6
     data, counts = _windows(w, r, s, w)
     jm, jw = jax_median_weights(jnp.asarray(data), jnp.asarray(counts), interpret=True, mode="loop")
-    tm, tw = sk.fused_median_weights(torch.from_numpy(data), torch.from_numpy(counts))
+    tm, tw = sk.fused_median_weights(
+        torch.from_numpy(data), torch.from_numpy(counts), mode="loop"
+    )
     assert tm.dtype == torch.float32 and tm.shape == (r, s)
-    assert torch.equal(tm, torch.from_numpy(np.array(jm)))
+    np.testing.assert_array_equal(_bits(tm), _bits(jm))
     assert torch.isinf(tm[0, 0])
     _assert_weights_close(tw.numpy(), np.asarray(jw), data, counts)
 
@@ -82,13 +90,6 @@ def test_cpu_tensors_take_the_plain_version_without_counting_a_launch():
     assert sk.fused_median_weights.launches == before
 
 
-@pytest.mark.parametrize("mode", ["radix", "pairwise"])
-def test_unported_modes_raise_naming_the_roadmap(mode):
-    data, counts = _windows(5, 4, 2, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sk.fused_median_weights(torch.from_numpy(data), torch.from_numpy(counts), mode=mode)
-
-
 @pytest.mark.parametrize(
     "data,counts,exc",
     [
@@ -110,15 +111,25 @@ def test_wrapper_checks_types_and_shapes(data, counts, exc):
         sk.fused_median_weights(data, counts, mode="bitonic")
 
 
-def test_shape_gate_follows_shared_memory():
+def test_shape_gate_follows_shared_memory(monkeypatch):
+    """Each mode's kernel limit is its shared memory; with the loop cap lifted past
+    it, the gate of every mode stops exactly there."""
+    monkeypatch.setenv(sk.MAX_WINDOW_ENV, str(10 * sk.MAX_WINDOW))
     assert sk.block_threads(32) == 128
     assert sk.block_threads(sk.MAX_WINDOW) == 32
     for w in (1, 32, 256, sk.MAX_WINDOW):
-        assert sk.kernel_supported(w, 64)
+        assert sk.kernel_supported(w, 64, mode="loop")
         assert sk.block_threads(w) * w * 4 <= sk.MAX_SHARED_BYTES
-    assert not sk.kernel_supported(sk.MAX_WINDOW + 1, 64)
-    assert not sk.kernel_supported(0, 64)
-    assert not sk.kernel_supported(32, 0)
+    assert not sk.kernel_supported(sk.MAX_WINDOW + 1, 64, mode="loop")
+    staged = 4 * (sk.TILE_WINDOWS + 1) * sk.TILE_MAX_WINDOW + sk.TILE_STATIC_BYTES
+    assert staged <= sk.MAX_SHARED_BYTES < staged + 4 * (sk.TILE_WINDOWS + 1)
+    for mode in ("pairwise", "radix"):
+        assert sk.MODE_MAX_WINDOW[mode] == sk.TILE_MAX_WINDOW
+        assert sk.kernel_supported(sk.TILE_MAX_WINDOW, 64, mode=mode)
+        assert not sk.kernel_supported(sk.TILE_MAX_WINDOW + 1, 64, mode=mode)
+    for mode in (None, *sk.MODES):
+        assert not sk.kernel_supported(0, 64, mode=mode)
+        assert not sk.kernel_supported(32, 0, mode=mode)
 
 
 def _fake_nvcc(tmp_path, body):
@@ -170,11 +181,11 @@ def test_cuda_kernel_matches_plain_version(cuda, w):
     d = torch.from_numpy(data).to(cuda)
     c = torch.from_numpy(counts).to(cuda)
     before = sk.fused_median_weights.launches
-    km, kw = sk.fused_median_weights(d, c)
+    km, kw = sk.fused_median_weights(d, c, mode="loop")
     pm, pw = sk.median_weights_reference(d, c)
     torch.cuda.synchronize()
     assert sk.fused_median_weights.launches == before + 1
-    assert torch.equal(km, pm)
+    np.testing.assert_array_equal(_bits(km.cpu()), _bits(pm.cpu()))
     _assert_weights_close(kw.cpu().numpy(), pw.cpu().numpy(), data, counts)
 
 
@@ -183,16 +194,19 @@ def test_cuda_kernel_reads_the_strided_ring(cuda):
     data, counts = _windows(7, 256, 64, 32)
     ring = torch.from_numpy(np.ascontiguousarray(data.transpose(2, 0, 1))).to(cuda)
     c = torch.from_numpy(counts).to(cuda)
-    km, kw = sk.fused_median_weights(ring.permute(1, 2, 0), c)
+    km, kw = sk.fused_median_weights(ring.permute(1, 2, 0), c, mode="loop")
     pm, pw = sk.median_weights_reference(torch.from_numpy(data).to(cuda), c)
-    assert torch.equal(km, pm)
+    np.testing.assert_array_equal(_bits(km.cpu()), _bits(pm.cpu()))
     _assert_weights_close(kw.cpu().numpy(), pw.cpu().numpy(), data, counts)
 
 
 @pytest.mark.gpu
 def test_cuda_kernel_rejects_windows_past_the_gate(cuda):
-    w = sk.MAX_WINDOW + 1
-    with pytest.raises(ValueError, match="shared-memory limit"):
-        sk.fused_median_weights(
-            torch.zeros(1, 1, w, device=cuda), torch.zeros(1, 1, dtype=torch.int32, device=cuda)
-        )
+    for mode in sk.MODES:
+        w = sk.MODE_MAX_WINDOW[mode] + 1
+        with pytest.raises(ValueError, match="shared-memory limit"):
+            sk.fused_median_weights(
+                torch.zeros(1, 1, w, device=cuda),
+                torch.zeros(1, 1, dtype=torch.int32, device=cuda),
+                mode=mode,
+            )

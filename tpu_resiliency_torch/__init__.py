@@ -4,14 +4,15 @@ The JAX package ``tpu_resiliency`` is the reference; this package sits beside it
 imports nothing of it. Ported so far: the straggler-telemetry hot loop — the
 device-resident ring (``telemetry.sharded``), the scoring pipeline
 (``telemetry.scoring``), reports (``telemetry.reporting``) and the hand-written
-Hopper kernel for the window reduction (``ops.scoring_kernels``,
-``csrc/median_weights.cu``).
+Hopper kernels of the window reduction (``ops.scoring_kernels``: ``loop``,
+``pairwise`` and ``radix`` in ``csrc/``), with the H100 sweep that sets their
+auto-selection (``ops.kernel_sweep``).
 
 Entry points run on the CUDA card by default and raise when there is none; pass
 ``device="cpu"`` to run the plain PyTorch path on the CPU.
 """
 
-from tpu_resiliency_torch.ops.scoring_kernels import fused_median_weights
+from tpu_resiliency_torch.ops.scoring_kernels import auto_mode, fused_median_weights
 from tpu_resiliency_torch.telemetry.reporting import Report, ReportGenerator
 from tpu_resiliency_torch.telemetry.sharded import MeshTelemetry, TelemetryState
 
@@ -20,5 +21,6 @@ __all__ = [
     "Report",
     "ReportGenerator",
     "TelemetryState",
+    "auto_mode",
     "fused_median_weights",
 ]

@@ -70,7 +70,8 @@ median_weights_loop_kernel(const float* __restrict__ data,
   const int lo_idx = (n - 1) / 2;
   const int hi_idx = n / 2;
   // Like the TPU tail, the picked values come from the window with invalid slots
-  // zeroed and are summed over every rank match.
+  // zeroed and are summed into 0.0 over every rank match (a picked -0.0 comes out
+  // +0.0), except over a window of one slot, whose sum XLA folds into the element.
   float lo = 0.0f;
   float hi = 0.0f;
   for (int i = 0; i < window; ++i) {
@@ -79,8 +80,8 @@ median_weights_loop_kernel(const float* __restrict__ data,
     for (int j = 0; j < i; ++j) rank += xs[j * nt + t] <= xi;
     for (int j = i + 1; j < window; ++j) rank += xs[j * nt + t] < xi;
     const float xf = i < count ? xi : 0.0f;
-    if (rank == lo_idx) lo += xf;
-    if (rank == hi_idx) hi += xf;
+    if (rank == lo_idx) lo = window == 1 ? xf : lo + xf;
+    if (rank == hi_idx) hi = window == 1 ? xf : hi + xf;
   }
   medians[g] = count > 0 ? 0.5f * (lo + hi) : CUDART_INF_F;
   weights[g] = total;

@@ -3,8 +3,9 @@
 Each kernel source ``tpu_resiliency_torch/csrc/<name>.cu`` exposes a plain C
 interface. It is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/tpu_resiliency_torch/`` beside the package, at first use, and loaded
-with ``ctypes``. The library's file name carries a digest of the source and the
-flags, so an edited source is never served by a stale build. A failed build raises.
+with ``ctypes``. The library's file name carries a digest of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source is never served by a
+stale build. A failed build raises.
 
 Nothing here runs at import: the CPU tests import every module of the port, and this
 machine-independent module must import where there is no ``nvcc``.
@@ -65,7 +66,10 @@ def _paths(name: str) -> tuple[Path, Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"kernel source {src} is missing")
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # sources include them
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     return src, out, out.with_suffix(".json")
 

@@ -18,7 +18,11 @@ from tpu_resiliency_torch.telemetry.scoring import (
     score_summary,
     scores_to_host,
 )
-from tpu_resiliency_torch.telemetry.sharded import MeshTelemetry, TelemetryState
+from tpu_resiliency_torch.telemetry.sharded import (
+    MeshTelemetry,
+    TelemetryState,
+    select_kernel_mode,
+)
 
 __all__ = [
     "MeshTelemetry",
@@ -33,6 +37,7 @@ __all__ = [
     "score_round",
     "score_summary",
     "scores_to_host",
+    "select_kernel_mode",
     "telemetry_state_from_numpy",
     "telemetry_state_to_numpy",
 ]

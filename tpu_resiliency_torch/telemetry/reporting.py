@@ -137,7 +137,8 @@ class ReportGenerator:
     Operates on the global telemetry matrix (``[R, S, W]`` windows or precomputed
     ``[R, S]`` medians+weights) on ``device`` (``None`` means the CUDA card) and
     emits :class:`Report` objects. ``use_kernel`` reduces the windows with
-    :func:`fused_median_weights`; otherwise the sort-based ``masked_median`` runs.
+    :func:`fused_median_weights` in its auto mode (``loop`` up to the measured window
+    cap, ``radix`` past it); otherwise the sort-based ``masked_median`` runs.
     """
 
     def __init__(

@@ -4,8 +4,9 @@ Port of ``tpu_resiliency/telemetry/sharded.py`` on one device. Telemetry lives o
 the card as a window-major ``[W, R, S]`` ring. Every step, :meth:`MeshTelemetry.push`
 writes one ``[R, S]`` row in place at a cursor that stays on the device, so a step
 never waits for the host. Every report, :meth:`MeshTelemetry.score` reads the ring
-as ``[R, S, W]`` (a permuted view, no copy), reduces each window with the Hopper
-kernel (or the sort-based path), and runs the scoring pipeline.
+as ``[R, S, W]`` (a permuted view, no copy), reduces each window with a Hopper
+kernel (``loop`` up to the measured window cap, ``radix`` past it) or the sort-based
+path, and runs the scoring pipeline.
 :meth:`MeshTelemetry.materialize` then makes the one device-to-host copy of the
 report.
 
@@ -29,12 +30,42 @@ from typing import Any, Optional, Sequence
 
 import torch
 
-from tpu_resiliency_torch.ops.scoring_kernels import fused_median_weights, kernel_supported
+from tpu_resiliency_torch.ops.scoring_kernels import (
+    auto_mode,
+    fused_median_weights,
+    kernel_supported,
+)
 from tpu_resiliency_torch.platform.device import resolve_device
 from tpu_resiliency_torch.telemetry import scoring
 from tpu_resiliency_torch.telemetry.reporting import Report, build_report
 
 DEFAULT_WINDOW = 32
+
+
+def select_kernel_mode(
+    window: int, signals: int, use_kernel: Optional[bool], device
+) -> Optional[str]:
+    """The window reduction a scorer runs: a kernel mode, or ``None`` for the sort path.
+
+    ``use_kernel=None`` picks :func:`auto_mode` on a CUDA device when
+    :func:`kernel_supported` admits the window (``loop`` up to the cap; ``radix`` past
+    it while radix auto-selection is on), and the sort path otherwise.
+    ``use_kernel=True`` runs :func:`auto_mode` wherever its kernel takes the window,
+    as the JAX package's ``use_pallas=True`` runs its auto mode, and raises elsewhere.
+    """
+    if use_kernel is None:
+        if torch.device(device).type != "cuda" or not kernel_supported(window, signals):
+            return None
+        return auto_mode(window)
+    if not use_kernel:
+        return None
+    mode = auto_mode(window)
+    if not kernel_supported(window, signals, mode=mode):
+        raise ValueError(
+            f"the {mode} kernel does not take window={window} with {signals} "
+            f"signals; pass use_kernel=False"
+        )
+    return mode
 
 
 @dataclasses.dataclass
@@ -55,9 +86,9 @@ class TelemetryState:
 class MeshTelemetry:
     """Owner of the telemetry state's push and score programs on one device.
 
-    ``device=None`` means the CUDA card (raises when there is none). ``use_kernel=None``
-    picks the Hopper kernel on CUDA whenever :func:`kernel_supported` admits the
-    window; the choice is made once here, exposed as ``use_kernel``, and never changes.
+    ``device=None`` means the CUDA card (raises when there is none). The window
+    reduction is chosen once here by :func:`select_kernel_mode`, exposed as
+    ``kernel_mode`` (``None`` for the sort path) and ``use_kernel``, and never changes.
     """
 
     def __init__(
@@ -83,15 +114,10 @@ class MeshTelemetry:
         self.ewma_alpha = ewma_alpha
         self.rank_to_host = rank_to_host
         self.iteration = 0
-        supported = kernel_supported(self.window, self.n_signals)
-        if use_kernel is None:
-            use_kernel = self.device.type == "cuda" and supported
-        elif use_kernel and not supported:
-            raise ValueError(
-                f"the kernel does not take window={self.window} with "
-                f"{self.n_signals} signals; pass use_kernel=False"
-            )
-        self.use_kernel = bool(use_kernel)
+        self.kernel_mode = select_kernel_mode(
+            self.window, self.n_signals, use_kernel, self.device
+        )
+        self.use_kernel = self.kernel_mode is not None
 
     # -- state lifecycle ---------------------------------------------------
 
@@ -132,7 +158,11 @@ class MeshTelemetry:
         EWMA / historical minimum carried. Every output stays on the device."""
         self.iteration += 1
         data_rsw = state.data.permute(1, 2, 0)
-        mw = fused_median_weights(data_rsw, state.counts) if self.use_kernel else None
+        mw = (
+            fused_median_weights(data_rsw, state.counts, mode=self.kernel_mode)
+            if self.use_kernel
+            else None
+        )
         scores = scoring.score_round(
             data_rsw,
             state.counts,
