@@ -16,7 +16,11 @@ the card's name and power limit:
    W in {1, 7, 32, 128, 256}; ``pairwise`` at config 4 and ``radix`` at the long
    window's full size (4096 x 64 x 512), each on the view and a copy; both at edge
    windows W in {1, 7, 32, 129, 256, 512, 1024}. Edge windows hold ties, all-equal
-   windows, negative values, -0.0 and counts 0 and 1. Medians must be equal bit for
+   windows, negative values, -0.0 and counts 0 and 1. ``radix`` also meets
+   ``radix_adversarial`` windows (ties, one value, signed zeros, keys that differ only
+   in their lowest bits, one outlier, telemetry around 1.0, counts 0, 1, W and past W)
+   at W in {1, 7, 33, 129, 512} and the tile's largest window (1758), passed to
+   ``fused_median_weights`` directly. Medians must be equal bit for
    bit, compared as int32 (the modes differ in the sign of a zero median, so each
    kernel is held to its own plain version); across modes they must be equal by
    value. Weights must lie within ``weight_rtol(W)`` of the window's sum of |x|.
@@ -44,7 +48,10 @@ the card's name and power limit:
    reduction, at config 4 and at W = 512: push per step, score per report, the
    kernels, their plain versions, the sort-based masked median + total, and
    ``torch.nanquantile`` + ``torch.nansum`` as the library yardstick (never called
-   by the port).
+   by the port); the radix kernel on windows of one value each, where no digit round
+   runs (its staging, register load, weight and hi pass alone); and its digit rounds
+   on the long window's data (``digit_work``), which also give its operation count
+   for the bound.
 9. ``breakdown``: ``torch.profiler`` device time by kernel over a few reports at
    config 4 and at W = 512.
 
@@ -72,11 +79,12 @@ SLOW_FRACTION = 0.05
 SLOWDOWN = 1.6
 EDGE_WINDOWS = (1, 7, 32, 128, 256)
 MODE_EDGE_WINDOWS = (1, 7, 32, 129, 256, 512, 1024)
+RADIX_ADVERSARIAL_WINDOWS = (1, 7, 33, 129, 512)  # and the tile's largest window
 EDGE_RANKS = EDGE_SIGNALS = 64
 REPORT_INTERVAL = 100  # steps per report for the amortised per-step cost
 # H100 SXM published peaks (NVIDIA data sheet), used for the kernels' bounds. The
-# radix key tests are 32-bit integer operations; the f32 non-tensor rate is the one
-# 32-bit non-tensor rate the sheet gives.
+# radix key operations are 32-bit integer operations; the f32 non-tensor rate is the
+# one 32-bit non-tensor rate the sheet gives.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 L2_FLUSH_BYTES = 64 << 20  # larger than the 50 MB L2
@@ -113,19 +121,98 @@ KERNELS = {
 }
 
 
-def make_telemetry(seed=0, w=W):
-    """``bench.py``'s seeded config-4 telemetry at window ``w``: windows [R, S, w],
+def make_telemetry(seed=0, w=W, ranks=R):
+    """``bench.py``'s seeded config-4 telemetry at window ``w``: windows [ranks, S, w],
     full counts, and the truth mask of the slow ranks."""
     rng = np.random.default_rng(seed)
     base = rng.uniform(0.8, 1.2, size=(1, S, 1)).astype(np.float32)
-    data = base * (1.0 + 0.05 * rng.standard_normal((R, S, w)).astype(np.float32))
-    n_slow = int(R * SLOW_FRACTION)
-    slow_ranks = rng.choice(R, size=n_slow, replace=False)
+    data = base * (1.0 + 0.05 * rng.standard_normal((ranks, S, w)).astype(np.float32))
+    n_slow = int(ranks * SLOW_FRACTION)
+    slow_ranks = rng.choice(ranks, size=n_slow, replace=False)
     data[slow_ranks] *= SLOWDOWN
-    counts = np.full((R, S), w, dtype=np.int32)
-    truth = np.zeros(R, dtype=bool)
+    counts = np.full((ranks, S), w, dtype=np.int32)
+    truth = np.zeros(ranks, dtype=bool)
     truth[slow_ranks] = True
     return data, counts, truth
+
+
+def radix_adversarial(w, seed, ranks=64, signals=64):
+    """Windows ``[ranks, signals, w]`` where a digit-round radix select could go wrong.
+    Rank r % 8 picks the values: 0 rounded normals (ties, negatives, -0.0); 1 one value
+    per window; 2 mixed -0.0 and +0.0 with a few +-1; 3 and 7 keys that differ only in
+    their lowest 1-3 bits (positive and negative bases); 4 one outlier in an otherwise
+    equal window; 5 telemetry around a base (5% noise, crossing 1.0 for some bases);
+    6 negatives only. Signal s % 8 picks the count: 0, 1, W, W + 1, 2W + 1 (both order
+    statistics past the valid slots), 2W (the upper one past them), or random in
+    [0, W]."""
+    rng = np.random.default_rng(seed)
+    shape = (ranks, signals, w)
+    family = np.arange(ranks)[:, None, None] % 8
+    normals = np.round(rng.standard_normal(shape), 1).astype(np.float32)
+    per_window = np.round(rng.standard_normal((ranks, signals, 1)), 1).astype(np.float32)
+    zeros = rng.choice(np.array([-0.0, 0.0, -0.0, 0.0, 1.0, -1.0], np.float32), size=shape)
+    nbits = 1 + np.arange(signals)[None, :, None] % 3
+    low = rng.integers(0, 1 << 3, size=shape) % (1 << nbits)
+    base_bits = (np.abs(per_window) + np.float32(0.5)).view(np.int32)  # in [0.5, 6)
+    low_pos = (base_bits + low).astype(np.int32).view(np.float32)
+    low_neg = (base_bits | np.int32(-(2**31))) + low
+    low_neg = low_neg.astype(np.int32).view(np.float32)
+    outlier = np.broadcast_to(per_window, shape).copy()
+    at = rng.integers(0, w, size=(ranks, signals))
+    big = rng.choice(np.array([1e3, -1e3, 1e-3, 3.0e38], np.float32), size=(ranks, signals))
+    np.put_along_axis(outlier, at[..., None], big[..., None], axis=-1)
+    around = rng.uniform(0.8, 1.2, (ranks, signals, 1)).astype(np.float32)
+    around = around * (1.0 + 0.05 * rng.standard_normal(shape).astype(np.float32))
+    negatives = -np.abs(normals) * 10.0
+    choices = (normals, np.broadcast_to(per_window, shape), zeros, low_pos, outlier,
+               around, negatives, low_neg)
+    data = np.choose(family, choices).astype(np.float32)
+    counts = rng.integers(0, w + 1, size=(ranks, signals))
+    pattern = (0, 1, w, w + 1, 2 * w + 1, 2 * w)
+    for s, c in enumerate(pattern):
+        counts[:, s::8] = c
+    return data, counts.astype(np.int32)
+
+
+def digit_work(data, counts, chunk=1 << 15):
+    """What the radix kernel's selection of the lower median does on these windows:
+    ``(rounds, examined)`` per window, flattened, as int64 tensors on the data's device.
+    ``examined`` sums the candidates of every digit round (all valid keys in the first).
+    Vectorised over windows: per round the candidates' least and largest key give the
+    top differing bit, a 5-bit digit below it, the bin of rank k, and its keys."""
+    import torch
+
+    w = data.shape[-1]
+    x = data.reshape(-1, w)
+    cnt = counts.reshape(-1).to(torch.int64)
+    rounds = torch.zeros_like(cnt)
+    examined = torch.zeros_like(cnt)
+    pos = torch.arange(w, device=data.device)
+    for a in range(0, x.shape[0], chunk):
+        b = x[a:a + chunk].contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        u = torch.where(b >= 1 << 31, b ^ 0xFFFFFFFF, b | 1 << 31)  # the order key
+        n_valid = cnt[a:a + chunk].clamp(0, w)
+        k = (cnt[a:a + chunk].clamp(min=1) - 1) // 2
+        cand = pos < n_valid[:, None]
+        active = k < n_valid
+        while True:
+            big = torch.where(cand, u, -1).amax(1)
+            small = torch.where(cand, u, 1 << 32).amin(1)
+            live = active & (big != small)
+            if not bool(live.any()):
+                break
+            _, e = torch.frexp((big ^ small).clamp(min=1).double())
+            shift = (e.to(torch.int64) - 1 - 4).clamp(min=0)
+            digit = (u >> shift[:, None]) & 31
+            bins = torch.zeros((u.shape[0], 32), dtype=torch.int64, device=u.device)
+            bins.scatter_add_(1, torch.where(cand, digit, 0), cand.to(torch.int64))
+            incl = bins.cumsum(1)
+            pick = (incl > k[:, None]).to(torch.int32).argmax(1, keepdim=True)
+            k = torch.where(live, k - (incl - bins).gather(1, pick)[:, 0], k)
+            examined[a:a + chunk] += torch.where(live, cand.sum(1), 0)
+            rounds[a:a + chunk] += live.to(torch.int64)
+            cand = cand & ~(live[:, None] & (digit != pick))
+    return rounds, examined
 
 
 def f1(pred_mask, truth):
@@ -297,6 +384,10 @@ def main() -> int:
     )
     for label, d in (("long_ring_view", long_view), ("long_contiguous", long_view.contiguous())):
         errs["radix"][label], _ = smoke.compare(label, "radix", d, long_counts)
+    for i, w in enumerate(RADIX_ADVERSARIAL_WINDOWS + (sk.TILE_MAX_WINDOW,)):
+        d, c = radix_adversarial(w, seed=60 + i)
+        errs["radix"][f"adversarial_w{w}"], _ = smoke.compare(
+            f"adversarial_w{w}", "radix", torch.tensor(d, device=dev), torch.tensor(c, device=dev))
     torch.cuda.empty_cache()
     max_abs_err = {mode: max(e.values()) for mode, e in errs.items()}
     smoke.emit("kernel_vs_plain", medians_equal_as_int32=True, equal_by_value_across=by_value,
@@ -518,18 +609,35 @@ def main() -> int:
     plain_ms["radix"] = time_each(
         lambda: sk.PLAIN_VERSIONS["radix"](view_l, counts_l), reps=5, flush=flush
     )
+    # The same launch on windows of one value each: no digit round runs, so this is
+    # the tile's staging, the register load, the weight and the hi pass alone.
+    one_value = torch.ones_like(long_ring).permute(1, 2, 0)
+    radix_no_round_ms = time_each(
+        lambda: fused_median_weights(one_value, counts_l, mode="radix"), reps=30, flush=flush
+    )
+    del one_value
     sortl_ms = time_each(
         lambda: (masked_median(view_l, counts_l), masked_total(view_l, counts_l)),
         reps=10, flush=flush,
     )
     library_ms["long"] = library(view_l, counts_l)
-    bound["radix"] = bounds(view_l, 64 * LONG_W * R * S)
+    # The radix kernel's key operations on this data (its source's head says how
+    # they are counted): 2 per candidate of each digit round, 3 per valid key.
+    rounds, examined = digit_work(view_l, counts_l)
+    radix_ops = int(2 * examined.sum() + 3 * counts_l.clamp(0, LONG_W).sum())
+    bound["radix"] = bounds(view_l, radix_ops)
     swept = sweep["results_ms"][f"{R}x{LONG_W}"]
     smoke.emit("times", ranks=R, signals=S, window=LONG_W, report_interval=REPORT_INTERVAL,
                **tl, kernel_mode=mt_lt.kernel_mode, radix_kernel_ms=kernel_ms["radix"],
-               radix_plain_ms=plain_ms["radix"], sort_ms=sortl_ms,
+               radix_no_round_ms=radix_no_round_ms, radix_plain_ms=plain_ms["radix"],
+               sort_ms=sortl_ms,
                nanquantile_ms=library_ms["long"], bound=bound["radix"],
+               radix_rounds={"mean": float(rounds.double().mean()), "max": int(rounds.max()),
+                             "histogram": {str(i): int(n) for i, n in
+                                           enumerate(torch.bincount(rounds).tolist()) if n},
+                             "examined_per_key": float(examined.sum()) / view_l.numel()},
                loop_and_pairwise_kernel_ms_from_sweep={m: swept[m] for m in ("loop", "pairwise")})
+    del rounds, examined
 
     # 9. breakdown ---------------------------------------------------------------
     from torch.profiler import ProfilerActivity, profile

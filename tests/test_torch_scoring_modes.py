@@ -22,6 +22,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from chip_smoke import radix_adversarial
 from tests.test_torch_scoring_kernels import _assert_weights_close, _bits
 from tpu_resiliency.ops.scoring_pallas import fused_median_weights as jax_median_weights
 from tpu_resiliency_torch.ops import scoring_kernels as sk
@@ -272,21 +273,27 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["pairwise", "radix"])
-@pytest.mark.parametrize("w", [1, 7, 32, 129, 256, 512, 1024])
+@pytest.mark.parametrize("w", [1, 7, 32, 129, 256, 512, 1024, sk.TILE_MAX_WINDOW])
 def test_cuda_kernel_matches_its_plain_version(cuda, mode, w):
-    data, counts = _windows(300 + w, 64, 64, w)
-    d, c = torch.from_numpy(data).to(cuda), torch.from_numpy(counts).to(cuda)
-    sk.reset_launches()
-    km, kw = sk.fused_median_weights(d, c, mode=mode)
-    pm, pw = sk.PLAIN_VERSIONS[mode](d, c)
-    torch.cuda.synchronize()
-    assert sk.fused_median_weights.launches_by_mode[mode] == 1
-    np.testing.assert_array_equal(_bits(km.cpu()), _bits(pm.cpu()))
-    valid = np.arange(w) < counts[..., None]
-    abs_sum = np.where(valid, np.abs(data), 0.0).sum(-1)
-    rtol = max(1e-5, w * 2.0**-24)  # two f32 sums of W terms in other orders
-    np.testing.assert_array_less(np.abs(kw.cpu().numpy() - pw.cpu().numpy()),
-                                 rtol * abs_sum + 1e-30)
+    """Each kernel on ``_windows``; radix also on ``chip_smoke.radix_adversarial``
+    (one value, signed zeros, low-bit-only keys, one outlier, counts past W), the
+    windows its digit rounds could get wrong."""
+    cases = [_windows(300 + w, 64, 64, w)]
+    if mode == "radix":
+        cases.append(radix_adversarial(w, seed=400 + w))
+    for data, counts in cases:
+        d, c = torch.from_numpy(data).to(cuda), torch.from_numpy(counts).to(cuda)
+        sk.reset_launches()
+        km, kw = sk.fused_median_weights(d, c, mode=mode)
+        pm, pw = sk.PLAIN_VERSIONS[mode](d, c)
+        torch.cuda.synchronize()
+        assert sk.fused_median_weights.launches_by_mode[mode] == 1
+        np.testing.assert_array_equal(_bits(km.cpu()), _bits(pm.cpu()))
+        valid = np.arange(w) < counts[..., None]
+        abs_sum = np.where(valid, np.abs(data), 0.0).sum(-1)
+        rtol = max(1e-5, w * 2.0**-24)  # two f32 sums of W terms in other orders
+        np.testing.assert_array_less(np.abs(kw.cpu().numpy() - pw.cpu().numpy()),
+                                     rtol * abs_sum + 1e-30)
 
 
 @pytest.mark.gpu

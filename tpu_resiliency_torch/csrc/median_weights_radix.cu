@@ -12,36 +12,57 @@
 // What it computes. Each float maps to its unsigned order key
 //   u = b < 0 ? ~b : b | 0x80000000   (b: the float's bits)
 // which orders as the floats do, with -0.0 below +0.0 (JAX's signed key XOR
-// INT_MIN). The order statistics k = (n-1)/2 and n/2, n = max(count, 1), are
-// selected among the valid slots MSB first: at each of the 32 bits the candidates
-// that match the prefix chosen so far and have a 0 there are counted; the selection
-// keeps the 0 branch if k is below that count, else it takes k minus the count into
-// the 1 branch. After 32 bits the prefix is the selected key. The TPU kernel
-// extracts the value as the min over the surviving candidates, which all share that
-// key, so the value is the key decoded, -0.0 included; where no valid slot has the
-// key (k past the valid slots, only when count > W) the min is over nothing, +inf.
-//
-// Invalid slots and the padding past W get the key 0xffffffff. A counted key must
-// match a prefix followed by a 0 bit, which all-ones never does, so every count, and
-// therefore every branch, equals the TPU kernel's with its candidate mask.
+// INT_MIN). With n = max(count, 1) and n_valid = min(count, W), the median is the
+// mean of the order statistics k_lo = (n-1)/2 and k_hi = n/2 among the valid slots,
+// each decoded from its key, so -0.0 comes out as -0.0. An order statistic past the
+// valid slots (only when count > W) is +inf, as the TPU kernel's masked min over no
+// candidate. Any exact selection on the key returns the key the TPU kernel's 32
+// one-bit passes reach, so the medians equal its bits.
 //
 // Design. A block of 8 warps stages 32 neighbouring windows (window_tile.cuh:
-// coalesced row loads of the strided ring, padded rows). Each warp then selects one
-// window at a time: lane l holds keys l, l + 32, ... in registers (KPL keys, a
-// template parameter: the next power of two of W / 32), and each pass counts its
-// matches and sums them over the warp with one __reduce_add_sync. Both order
-// statistics are counted in the same pass over the keys; while their prefixes agree
-// (always for odd n) one count serves both. The weight is each lane's sum of its
-// valid values, summed over the warp by shuffles: another order than the plain
-// version's sum, so weights agree within a tolerance, medians bit for bit.
+// coalesced row loads of the strided ring, padded rows), and one warp selects one
+// window at a time; lane l holds the keys of slots l, l + 32, ... in registers (KPL
+// keys, the next power of two of W / 32). Only k_lo is selected, by digit rounds over
+// a candidate list that shrinks (multi-bit radix select with candidate filtering, as
+// in "AIR Top-K", Zhang et al., SC '23). The first candidates are the valid keys; a
+// round
+//  - ends the selection if the candidates' OR equals their AND (all one key);
+//  - else takes the 5-bit digit just below and including hb, the highest bit where
+//    they differ (the bits above it are common, so no prefix test is needed);
+//  - counts the 32 digit bins, lane b counting bin b: per slot one ballot of the
+//    candidacy and one of each digit bit, lane b's count is the popcount of their
+//    AND with each plane taken as is or inverted after bit j of b. No atomics, so the
+//    time does not depend on how the keys crowd into bins;
+//  - picks the bin holding rank k from an inclusive warp scan of the counts and
+//    takes the lower bins' count off k;
+//  - compacts that bin's keys, in slot order, into the window's own column of the
+//    staged tile (dead once the keys are in registers): the write index never passes
+//    the read index, so the column is rewritten in place.
+// Later rounds read their candidates from the column until at most 32 are left;
+// from then on (and from the start where a window holds at most 32 valid keys) they
+// are one register per lane and a round writes nothing. The digit bits are tested on
+// the key itself with per-round masks, and the first round visits every register
+// slot: a branch per slot around the ballots cost more than it saved. Each round
+// fixes bit hb at least, so there are at most 32; on telemetry (a few % of noise
+// around a base) a window takes about three, and only the first reads all W keys.
+// k_hi then follows from k_lo in one pass over the register keys: with
+// c_le = #(keys <= lo) and nxt the least key above lo, hi = lo if c_le > k_hi, else
+// nxt (k_hi <= k_lo + 1). The weight is each lane's sum of its valid values, summed
+// over the warp by shuffles: another order than the plain version's sum, so weights
+// agree within a tolerance, medians bit for bit.
 //
-// Bound. Per report the kernel must read R*S*W*4 + R*S*4 bytes and write 2*R*S*4;
-// at 4096 x 64 x 512 that is 540,016,640 B, 0.1612 ms at 3.35 TB/s. The radix
-// formulation does 64*W key tests per window (8.59e9 at that shape, 0.128 ms at the
-// 67 T/s 32-bit non-tensor rate), so bytes bound it on paper. This version spends
-// about three integer instructions per key per pass (shift, compare, add) over all
-// keys in every pass: it is limited by instruction issue, not by memory. Skipping
-// keys that left the candidate set, or counting on bit-sliced keys, is later work.
+// Bound. Per report the kernel must read R*S*W*4 + R*S*4 bytes and write 2*R*S*4; at
+// 4096 x 64 x 512 that is 540,016,640 B, 0.1612 ms at 3.35 TB/s. Its key operations,
+// 2 * sum_r m_r + 3 * n_valid per window (m_r: candidates of round r; a count and a
+// compaction test per candidate, the order key, the hi pass), take far less at
+// 67 T/s; chip_smoke.py counts them on the run's own data. The earlier design ran 32
+// one-bit passes over all W keys for both order statistics, about 130 issued
+// instructions per register key, and was bound by instruction issue at 8.2x the
+// bytes bound. This one issues about 40 per register key in its first round and
+// little after it. On an H100 (700 W) at that shape the same launch on windows of
+// one value each, where no round runs, takes about 70% of its time on telemetry: the
+// tile's staging (window_tile.cuh), whose loop keeps one load per thread in flight,
+// now holds the kernel, not the selection.
 //
 // Shared memory: W * 33 * 4 B of dynamic shared memory per block (the staged tile)
 // plus 128 B of counts, so W <= 1758 on Hopper's 227 KB (the Python gate).
@@ -61,6 +82,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kNoKey = 0xffffffffu;
+constexpr int kDigitBits = 5;  // 32 bins: one per lane
+constexpr unsigned kDigitMask = (1u << kDigitBits) - 1u;
 constexpr size_t kStaticSharedLimit = 48 * 1024;
 
 __device__ __forceinline__ unsigned order_key(float v) {
@@ -70,6 +93,62 @@ __device__ __forceinline__ unsigned order_key(float v) {
 
 __device__ __forceinline__ float from_order_key(unsigned u) {
   return __uint_as_float((u & 0x80000000u) ? (u ^ 0x80000000u) : ~u);
+}
+
+// The 5-bit digit of a round: the candidates' bits [shift, shift + 5), where shift
+// puts the top bit of `diff` (their highest differing bit) at the digit's top, or 0.
+struct Digit {
+  unsigned low;   // 1 << shift
+  unsigned mask;  // kDigitMask << shift
+
+  __device__ __forceinline__ explicit Digit(unsigned diff) {
+    const int shift = max(31 - __clz(diff) - (kDigitBits - 1), 0);
+    low = 1u << shift;
+    mask = kDigitMask << shift;
+  }
+};
+
+// How many of this slot's 32 candidates have digit == lane: the AND of the
+// candidacy ballot with each digit-bit plane, inverted where the lane's bit is 0.
+__device__ __forceinline__ unsigned bin_count(bool cand, unsigned u, Digit d,
+                                              const unsigned (&flip)[kDigitBits]) {
+  unsigned match = __ballot_sync(kFullMask, cand);
+#pragma unroll
+  for (int b = 0; b < kDigitBits; ++b) {
+    match &= __ballot_sync(kFullMask, (u & (d.low << b)) != 0u) ^ flip[b];
+  }
+  return __popc(match);
+}
+
+// The bin holding candidate rank k, from the bin counts (lane b holds bin b's), as
+// the key bits it selects (bin << shift). Takes the lower bins' count off k and sets
+// m to the chosen bin's count.
+__device__ __forceinline__ unsigned choose_bin(unsigned count, int lane, Digit d,
+                                               unsigned& k, unsigned& m) {
+  unsigned incl = count;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned up = __shfl_up_sync(kFullMask, incl, off);
+    if (lane >= off) incl += up;
+  }
+  const unsigned bin = __ffs(__ballot_sync(kFullMask, incl > k)) - 1;
+  k -= __shfl_sync(kFullMask, incl - count, bin);
+  m = __shfl_sync(kFullMask, count, bin);
+  return bin * d.low;
+}
+
+// Appends u to the window's column if keep, after the `out` keys kept so far and the
+// kept keys of lower lanes; folds it into the kept keys' OR and AND.
+__device__ __forceinline__ void append(bool keep, unsigned u, float* col,
+                                       unsigned lower_lanes, unsigned& out,
+                                       unsigned& k_or, unsigned& k_and) {
+  const unsigned kept = __ballot_sync(kFullMask, keep);
+  if (keep) {
+    col[(out + __popc(kept & lower_lanes)) * tr::kTileStride] = __uint_as_float(u);
+    k_or |= u;
+    k_and &= u;
+  }
+  out += __popc(kept);
 }
 
 template <int KPL>
@@ -88,81 +167,131 @@ median_weights_radix_kernel(const float* __restrict__ data,
   __syncthreads();
 
   const int lane = threadIdx.x % 32;
+  const unsigned lower_lanes = (1u << lane) - 1u;
+  unsigned flip[kDigitBits];  // lane b keeps plane j where bit j of b is 1
+#pragma unroll
+  for (int b = 0; b < kDigitBits; ++b) flip[b] = ((lane >> b) & 1) ? 0u : kFullMask;
+
   for (int t = threadIdx.x / 32; t < tr::kTileWindows; t += kThreads / 32) {
     const long long g = g0 + t;
     if (g >= n_windows) break;  // warp-uniform
     const int count = cnt[t];
     const int n_valid = min(count, window);
+    float* col = xs + t;  // slot j of this window at col[j * kTileStride]
     unsigned key[KPL];
     float total = 0.0f;
+    unsigned k_or = 0;
+    unsigned k_and = kNoKey;
 #pragma unroll
     for (int i = 0; i < KPL; ++i) {
       const int j = lane + 32 * i;
       const bool valid = j < n_valid;
-      const float v = valid ? xs[j * tr::kTileStride + t] : 0.0f;
+      const float v = valid ? col[j * tr::kTileStride] : 0.0f;
       key[i] = valid ? order_key(v) : kNoKey;
       total += v;
+      if (valid) k_or |= key[i];
+      k_and &= key[i];
     }
 
     const int n = max(count, 1);
-    unsigned k_lo = (n - 1) / 2;
-    unsigned k_hi = n / 2;
-    unsigned p_lo = 0;  // key bits chosen so far, MSB first
-    unsigned p_hi = 0;
-    for (int bit = 31; bit >= 0; --bit) {
-      const unsigned t_lo = p_lo << 1;  // prefix followed by a 0 bit
-      const unsigned t_hi = p_hi << 1;
-      unsigned c_lo = 0;
-      unsigned c_hi = 0;
-      if (t_lo == t_hi) {
-#pragma unroll
-        for (int i = 0; i < KPL; ++i) c_lo += (key[i] >> bit) == t_lo;
-        c_lo = __reduce_add_sync(kFullMask, c_lo);
-        c_hi = c_lo;
-      } else {
+    const int k_lo = (n - 1) / 2;
+    const int k_hi = n / 2;
+    unsigned lo = kNoKey;
+    unsigned hi = kNoKey;
+    if (k_lo < n_valid) {  // warp-uniform, as every branch below
+      unsigned all_or = __reduce_or_sync(kFullMask, k_or);
+      unsigned all_and = __reduce_and_sync(kFullMask, k_and);
+      unsigned k = k_lo;
+      // The candidates once at most 32 are left: u in each lane where cand.
+      bool cand = lane < n_valid;
+      unsigned u = key[0];
+      if (KPL > 1 && n_valid > 32 && all_or != all_and) {
+        // First round: the valid register keys; the chosen bin goes to the column.
+        // Every slot is visited (the candidacy ballot masks the invalid ones): a
+        // branch per slot around the ballots costs more than a full window saves.
+        Digit d(all_or ^ all_and);
+        unsigned c = 0;
 #pragma unroll
         for (int i = 0; i < KPL; ++i) {
-          const unsigned u = key[i] >> bit;
-          c_lo += u == t_lo;
-          c_hi += u == t_hi;
+          c += bin_count(lane + 32 * i < n_valid, key[i], d, flip);
         }
-        c_lo = __reduce_add_sync(kFullMask, c_lo);
-        c_hi = __reduce_add_sync(kFullMask, c_hi);
-      }
-      if (k_lo < c_lo) {
-        p_lo = t_lo;
-      } else {
-        k_lo -= c_lo;
-        p_lo = t_lo | 1u;
-      }
-      if (k_hi < c_hi) {
-        p_hi = t_hi;
-      } else {
-        k_hi -= c_hi;
-        p_hi = t_hi | 1u;
-      }
-    }
-
-    // Does a valid slot hold each selected key? Always, unless count > W.
-    bool has_lo = false;
-    bool has_hi = false;
+        unsigned m;
+        unsigned sel = choose_bin(c, lane, d, k, m);
+        unsigned out = 0;
+        k_or = 0;
+        k_and = kNoKey;
 #pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      const bool valid = lane + 32 * i < n_valid;
-      has_lo |= valid && key[i] == p_lo;
-      has_hi |= valid && key[i] == p_hi;
+        for (int i = 0; i < KPL; ++i) {
+          append(lane + 32 * i < n_valid && (key[i] & d.mask) == sel, key[i], col,
+                 lower_lanes, out, k_or, k_and);
+        }
+        __syncwarp();
+        all_or = __reduce_or_sync(kFullMask, k_or);
+        all_and = __reduce_and_sync(kFullMask, k_and);
+        // Column rounds while more than 32 candidates differ.
+        while (m > 32 && all_or != all_and) {
+          d = Digit(all_or ^ all_and);
+          c = 0;
+          for (unsigned s0 = 0; s0 < m; s0 += 32) {
+            const bool in = s0 + lane < m;
+            const unsigned v = in ? __float_as_uint(col[(s0 + lane) * tr::kTileStride]) : 0u;
+            c += bin_count(in, v, d, flip);
+          }
+          unsigned m_next;
+          sel = choose_bin(c, lane, d, k, m_next);
+          out = 0;
+          k_or = 0;
+          k_and = kNoKey;
+          for (unsigned s0 = 0; s0 < m; s0 += 32) {
+            const bool in = s0 + lane < m;
+            const unsigned v = in ? __float_as_uint(col[(s0 + lane) * tr::kTileStride]) : 0u;
+            append(in && (v & d.mask) == sel, v, col, lower_lanes, out, k_or, k_and);
+          }
+          __syncwarp();
+          m = m_next;
+          all_or = __reduce_or_sync(kFullMask, k_or);
+          all_and = __reduce_and_sync(kFullMask, k_and);
+        }
+        cand = lane < m;
+        u = cand ? __float_as_uint(col[lane * tr::kTileStride]) : 0u;
+      }
+      // Register rounds over at most 32 candidates, one per lane.
+      while (all_or != all_and) {
+        const Digit d(all_or ^ all_and);
+        unsigned m;
+        const unsigned sel = choose_bin(bin_count(cand, u, d, flip), lane, d, k, m);
+        cand = cand && (u & d.mask) == sel;
+        all_or = __reduce_or_sync(kFullMask, cand ? u : 0u);
+        all_and = __reduce_and_sync(kFullMask, cand ? u : kNoKey);
+      }
+      lo = all_and;
+
+      if (k_hi == k_lo) {
+        hi = lo;
+      } else if (k_hi < n_valid) {
+        // Invalid slots hold kNoKey: never <= lo, and never the least key above it
+        // while a valid one is.
+        unsigned c_le = 0;
+        unsigned nxt = kNoKey;
+#pragma unroll
+        for (int i = 0; i < KPL; ++i) {
+          c_le += key[i] <= lo;
+          nxt = min(nxt, key[i] > lo ? key[i] : kNoKey);
+        }
+        c_le = __reduce_add_sync(kFullMask, c_le);
+        nxt = __reduce_min_sync(kFullMask, nxt);
+        hi = c_le > static_cast<unsigned>(k_hi) ? lo : nxt;
+      }
     }
-    has_lo = __any_sync(kFullMask, has_lo);
-    has_hi = __any_sync(kFullMask, has_hi);
 
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       total += __shfl_xor_sync(kFullMask, total, off);
     }
     if (lane == 0) {
-      const float lo = has_lo ? from_order_key(p_lo) : CUDART_INF_F;
-      const float hi = has_hi ? from_order_key(p_hi) : CUDART_INF_F;
-      medians[g] = count > 0 ? 0.5f * (lo + hi) : CUDART_INF_F;
+      const float lo_v = k_lo < n_valid ? from_order_key(lo) : CUDART_INF_F;
+      const float hi_v = k_hi < n_valid ? from_order_key(hi) : CUDART_INF_F;
+      medians[g] = count > 0 ? 0.5f * (lo_v + hi_v) : CUDART_INF_F;
       weights[g] = total;
     }
   }

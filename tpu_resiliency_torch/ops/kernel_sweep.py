@@ -20,11 +20,12 @@ is slower by more than the TPU sweep's 2% (``TOL``) and by more than ``ABS_TOL_M
   sets ``scoring_kernels.DEFAULT_RADIX_AUTO`` (override: ``$TPU_RESILIENCY_CUDA_RADIX``).
 
 The absolute term is the port's addition to the TPU rule. On the H100 every path
-takes 0.03-0.06 ms at R = 256 and W <= 128, whatever its work (a single cold launch);
+takes 0.02-0.07 ms at R = 256 and W <= 128, whatever its work (a single cold launch);
 there a relative 2% is a few microseconds, below the floor's own scatter, and the
-TPU rule alone would hand config 4 (R = 4096, W = 32) from ``loop`` to a ``radix``
-3.5 times slower over a 6 microsecond difference at R = 256. ``ABS_TOL_MS`` is half
-that floor. ``loop_max_window_relative_only`` reports what the TPU rule alone gives.
+TPU rule alone can hand config 4 (R = 4096, W = 32) from ``loop`` to a slower
+``radix`` over a few microseconds at R = 256 (with the one-bit-pass radix, 3.5 times
+slower, it once did). ``ABS_TOL_MS`` is half that floor.
+``loop_max_window_relative_only`` reports what the TPU rule alone gives.
 
 ``pairwise`` is timed but never votes: it is never auto-selected.
 

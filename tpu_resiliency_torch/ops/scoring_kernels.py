@@ -11,8 +11,11 @@ Three formulations, one hand-written CUDA kernel each, all launched through
 - ``pairwise`` (``csrc/median_weights_pairwise.cu``): the same ranks, every element
   of a window ranked in parallel against all others; explicit ``mode="pairwise"``
   only, as in the JAX package.
-- ``radix`` (``csrc/median_weights_radix.cu``): each order statistic by 32 MSB-first
-  count-and-narrow passes over the float's order key, O(32·W); the long-window mode.
+- ``radix`` (``csrc/median_weights_radix.cu``): the lower median by 5-bit digit
+  rounds over a candidate list that shrinks (the first round reads all W keys, later
+  ones only the survivors), the upper one from it in one pass; the long-window mode.
+  Its plain version keeps the JAX kernel's 32 one-bit passes per order statistic:
+  any exact selection gives the same bits.
 
 ``mode=None`` means :func:`auto_mode`: ``loop`` up to the window cap, ``radix`` past
 it. On a CUDA tensor the wrapper launches the mode's kernel; on a CPU tensor it runs
@@ -63,14 +66,13 @@ MODE_MAX_WINDOW = {"loop": MAX_WINDOW, "pairwise": TILE_MAX_WINDOW, "radix": TIL
 #: H100 sweep (``ops/kernel_sweep.py`` as run by ``chip_smoke.py`` phase ``sweep``, on
 #: an NVIDIA H100 80GB HBM3 at 700 W; its table is in PERF.md section 6 and in
 #: ``tests/test_torch_kernel_sweep.py``): its ``loop_max_window``. At R = 4096 ``loop``
-#: beats ``radix`` 0.088 to 0.305 ms at W = 32 and 0.27 to 0.38 ms at W = 64, and loses
-#: 1.12 to 0.49 ms at W = 128.
-DEFAULT_MAX_WINDOW = 64
+#: beats ``radix`` 0.088 to 0.109 ms at W = 32, and loses 0.27 to 0.16 ms at W = 64.
+DEFAULT_MAX_WINDOW = 32
 #: The port's own override of the cap; a TPU sweep's export never sets it.
 MAX_WINDOW_ENV = "TPU_RESILIENCY_CUDA_MAX_WINDOW"
 #: Auto-selection of ``radix`` past the cap (explicit ``mode="radix"`` always works).
 #: On, from the same sweep: ``radix`` beat the sort path at every swept window past
-#: the cap and every rank count (1.34 to 10.10 ms at 4096 x 64 x 512).
+#: the cap and every rank count (0.91 to 10.12 ms at 4096 x 64 x 512).
 DEFAULT_RADIX_AUTO = True
 RADIX_ENV = "TPU_RESILIENCY_CUDA_RADIX"
 
