@@ -9,17 +9,21 @@ the card's name and power limit:
 
 1. ``device``: the card, its count, and ``nvidia-smi``'s name and power limit.
 2. ``build``: each kernel's build seconds and ptxas register / shared-memory / spill
-   lines.
+   lines; the loop kernel's registers, stack frame and spills per instance of its
+   register network (P = 1 .. 64) and of its general path. A network instance with
+   P <= 32 that spills or keeps a stack frame fails the run.
 3. ``kernel_vs_plain``: every kernel against its own plain PyTorch version on the
    card. ``loop`` at config 4 (4096 ranks x 64 signals x window 32; the ring's
    permuted view and a contiguous copy, random counts in [0, W]) and at edge windows
-   W in {1, 7, 32, 128, 256}; ``pairwise`` at config 4 and ``radix`` at the long
-   window's full size (4096 x 64 x 512), each on the view and a copy; both at edge
-   windows W in {1, 7, 32, 129, 256, 512, 1024}. Edge windows hold ties, all-equal
-   windows, negative values, -0.0 and counts 0 and 1. ``radix`` also meets
+   W in {1, 2, 7, 31, 32, 33, 63, 64, 65, 128, 256} (each size of its register
+   network and the switch to its general path past 64); ``pairwise`` at config 4 and
+   ``radix`` at the long window's full size (4096 x 64 x 512), each on the view and a
+   copy; both at edge windows W in {1, 7, 32, 129, 256, 512, 1024}. Edge windows hold
+   ties, all-equal windows, negative values, -0.0 and counts 0 and 1.
    ``radix_adversarial`` windows (ties, one value, signed zeros, keys that differ only
    in their lowest bits, one outlier, telemetry around 1.0, counts 0, 1, W and past W)
-   at W in {1, 7, 33, 129, 512} and the tile's largest window (1758), passed to
+   meet ``radix`` at W in {1, 7, 33, 129, 512} and the tile's largest window (1758),
+   and ``loop`` at W in {1, 7, 32, 33, 64, 65}, passed to
    ``fused_median_weights`` directly. Medians must be equal bit for
    bit, compared as int32 (the modes differ in the sign of a zero median, so each
    kernel is held to its own plain version); across modes they must be equal by
@@ -64,6 +68,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import sys
 import time
@@ -77,9 +82,10 @@ LONG_PARTIAL = 300  # pushes before its second report
 CPU_RANKS = 256  # ranks of the CPU comparison of the long-window run
 SLOW_FRACTION = 0.05
 SLOWDOWN = 1.6
-EDGE_WINDOWS = (1, 7, 32, 128, 256)
+EDGE_WINDOWS = (1, 2, 7, 31, 32, 33, 63, 64, 65, 128, 256)
 MODE_EDGE_WINDOWS = (1, 7, 32, 129, 256, 512, 1024)
 RADIX_ADVERSARIAL_WINDOWS = (1, 7, 33, 129, 512)  # and the tile's largest window
+LOOP_ADVERSARIAL_WINDOWS = (1, 7, 32, 33, 64, 65)
 EDGE_RANKS = EDGE_SIGNALS = 64
 REPORT_INTERVAL = 100  # steps per report for the amortised per-step cost
 # H100 SXM published peaks (NVIDIA data sheet), used for the kernels' bounds. The
@@ -172,6 +178,13 @@ def radix_adversarial(w, seed, ranks=64, signals=64):
     for s, c in enumerate(pattern):
         counts[:, s::8] = c
     return data, counts.astype(np.int32)
+
+
+def bitonic_comparators(p):
+    """Compare-exchanges of the loop kernel's bitonic network over ``p`` slots (a
+    power of two): p/2 per sub-stage, log2(p) (log2(p) + 1) / 2 sub-stages."""
+    log = p.bit_length() - 1
+    return p // 2 * log * (log + 1) // 2
 
 
 def digit_work(data, counts, chunk=1 << 15):
@@ -333,11 +346,28 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(sk.KERNEL_NAMES.values())
     built = {mode: _build.load(name) for mode, name in sk.KERNEL_NAMES.items()}
+    # The loop kernel's instances: its register network per P, and its general path.
+    network, general = {}, None
+    for name, info in _build.ptxas_by_kernel(built["loop"].ptxas).items():
+        m = re.search(r"network_kernelILi(\d+)E", name)
+        if m:
+            network[int(m.group(1))] = info
+        else:
+            general = info
+    want = [1 << i for i in range(sk.NETWORK_MAX_WINDOW.bit_length())]
+    if sorted(network) != want or general is None:
+        raise AssertionError(f"loop kernel networks P = {sorted(network)}, want {want} and the general path")
+    for p, info in network.items():
+        local = info.get("stack_frame", 0) + info.get("spill_stores", 0) + info.get("spill_loads", 0)
+        if p <= 32 and local:
+            raise AssertionError(f"loop network P = {p} keeps {local} bytes in local memory: {info}")
+    loop_instances = {**{f"network_p{p}": network[p] for p in want}, "general": general}
     smoke.emit(
         "build", wall_seconds=time.perf_counter() - t0,
         kernels={mode: {"source": name, "build_seconds": b.build_seconds,
                         "ptxas": list(b.ptxas)}
                  for (mode, name), b in zip(sk.KERNEL_NAMES.items(), built.values())},
+        loop_instances=loop_instances,
         loop_threads_per_block={w: sk.block_threads(w) for w in (W, LONG_W)},
         tile_dynamic_shared_bytes_per_block={w: w * (sk.TILE_WINDOWS + 1) * 4
                                              for w in (W, LONG_W, 1024)},
@@ -388,6 +418,10 @@ def main() -> int:
         d, c = radix_adversarial(w, seed=60 + i)
         errs["radix"][f"adversarial_w{w}"], _ = smoke.compare(
             f"adversarial_w{w}", "radix", torch.tensor(d, device=dev), torch.tensor(c, device=dev))
+    for i, w in enumerate(LOOP_ADVERSARIAL_WINDOWS):
+        d, c = radix_adversarial(w, seed=80 + i)
+        errs["loop"][f"adversarial_w{w}"], _ = smoke.compare(
+            f"adversarial_w{w}", "loop", torch.tensor(d, device=dev), torch.tensor(c, device=dev))
     torch.cuda.empty_cache()
     max_abs_err = {mode: max(e.values()) for mode, e in errs.items()}
     smoke.emit("kernel_vs_plain", medians_equal_as_int32=True, equal_by_value_across=by_value,
@@ -596,10 +630,14 @@ def main() -> int:
         lambda: (masked_median(view4, counts4), masked_total(view4, counts4)), reps=20, flush=flush
     )
     library_ms = {"config4": library(view4, counts4)}
-    bound = {m: bounds(view4, R * S * W * W) for m in ("loop", "pairwise")}
+    # Operations: the loop kernel's network does two FMNMX per compare-exchange;
+    # pairwise compares every pair of slots.
+    bound = {"loop": bounds(view4, R * S * 2 * bitonic_comparators(sk.network_size(W))),
+             "pairwise": bounds(view4, R * S * W * W)}
     smoke.emit("times", ranks=R, signals=S, window=W, report_interval=REPORT_INTERVAL, **t4,
                kernel_ms=kernel_ms, plain_ms=plain_ms, sort_ms=sort4_ms,
-               nanquantile_ms=library_ms["config4"], bound={"loop_and_pairwise": bound["loop"]})
+               nanquantile_ms=library_ms["config4"],
+               bound={m: bound[m] for m in ("loop", "pairwise")})
     mt_lt = MeshTelemetry(R, signal_names=names, window=LONG_W)
     st_l, tl = path_times(mt_lt, long_ring, reps_push=200)
     view_l, counts_l = st_l.data.permute(1, 2, 0), st_l.counts

@@ -15,24 +15,24 @@ from tpu_resiliency_torch.ops import scoring_kernels as sk
 
 # "RxW": (loop, pairwise, radix, sort) ms
 SWEEP_MS = {
-    "256x32": (0.06673599779605865, 0.059407999739050865, 0.05641600117087364, 0.5443040132522583),
-    "256x64": (0.0650240033864975, 0.06331200152635574, 0.06300800293684006, 0.212848000228405),
-    "256x128": (0.15804799646139145, 0.0634399987757206, 0.0480320006608963, 0.2250239998102188),
-    "256x256": (0.5252479910850525, 0.2011360004544258, 0.044895999133586884, 0.576911985874176),
-    "256x512": (3.7835999727249146, 0.7357760071754456, 0.09649599716067314, 0.7276960015296936),
-    "256x1024": (28.705056190490723, 4.020079851150513, 0.3075360059738159, 1.043615996837616),
-    "1024x32": (0.04187200032174587, 0.041888000443577766, 0.04281600005924702, 0.27959999442100525),
-    "1024x64": (0.0870399996638298, 0.0652799978852272, 0.0504320003092289, 0.5805120170116425),
-    "1024x128": (0.3551520109176636, 0.1979839950799942, 0.0769599974155426, 0.7082880139350891),
-    "1024x256": (2.0874240398406982, 0.6953920125961304, 0.13952000439167023, 2.040768027305603),
-    "1024x512": (15.072896003723145, 2.64956796169281, 0.2717120051383972, 2.6115360260009766),
-    "1024x1024": (114.7514877319336, 16.005712509155273, 1.1656959652900696, 3.8088639974594116),
-    "4096x32": (0.0889119990170002, 0.08374399691820145, 0.10956799983978271, 0.5811200141906738),
-    "4096x64": (0.2755360007286072, 0.22153599560260773, 0.1615999937057495, 1.98580801486969),
-    "4096x128": (1.1345760226249695, 0.7240319848060608, 0.24694400280714035, 2.490272045135498),
-    "4096x256": (8.276768207550049, 2.6202239990234375, 0.4657280147075653, 7.814432144165039),
-    "4096x512": (60.14463996887207, 10.17745590209961, 0.9143200218677521, 10.098639965057373),
-    "4096x1024": (451.51202392578125, 62.90398406982422, 4.512383937835693, 14.88420820236206),
+    "256x32": (0.02774399984627962, 0.03043199982494116, 0.029264000244438648, 0.2937279939651489),
+    "256x64": (0.027967999689280987, 0.031408000737428665, 0.034671999514102936, 0.5074079930782318),
+    "256x128": (0.1573440060019493, 0.0735040009021759, 0.03412799909710884, 0.32128000259399414),
+    "256x256": (0.5217919945716858, 0.19947200268507004, 0.04447999969124794, 0.5719040036201477),
+    "256x512": (3.7677600383758545, 0.7283200025558472, 0.09596800059080124, 0.7240960001945496),
+    "256x1024": (28.55366325378418, 3.991439938545227, 0.3062559962272644, 1.0353599786758423),
+    "1024x32": (0.06473600119352341, 0.06849600002169609, 0.06478400155901909, 0.4312960058450699),
+    "1024x64": (0.06441599875688553, 0.07011200115084648, 0.07065600156784058, 0.5749120116233826),
+    "1024x128": (0.352512001991272, 0.19630400091409683, 0.0764160007238388, 0.7083680033683777),
+    "1024x256": (2.07369601726532, 0.6879040002822876, 0.13846400380134583, 2.02619206905365),
+    "1024x512": (14.960271835327148, 2.629296064376831, 0.2699680030345917, 2.5985920429229736),
+    "1024x1024": (113.8911361694336, 15.881296157836914, 1.1605440378189087, 3.799440026283264),
+    "4096x32": (0.08427200093865395, 0.08292799815535545, 0.10831999778747559, 0.5727680027484894),
+    "4096x64": (0.08671999722719193, 0.21985600143671036, 0.16036800295114517, 1.9738240242004395),
+    "4096x128": (1.1241599917411804, 0.7186079919338226, 0.2449759989976883, 2.4711999893188477),
+    "4096x256": (8.199872016906738, 2.600559949874878, 0.46323201060295105, 7.7799201011657715),
+    "4096x512": (59.690399169921875, 10.10105562210083, 0.9136160016059875, 10.109456062316895),
+    "4096x1024": (449.24151611328125, 62.43204879760742, 4.496159791946411, 14.826815605163574),
 }
 
 
@@ -46,15 +46,19 @@ def _results(table=SWEEP_MS):
 
 def test_the_measured_sweep_derives_the_port_defaults():
     got = ks.derive(_results())
-    assert got["loop_max_window"] == sk.DEFAULT_MAX_WINDOW == 32
+    assert got["loop_max_window"] == sk.DEFAULT_MAX_WINDOW == 64
     assert got["radix_beats_sort_past_cap"] is sk.DEFAULT_RADIX_AUTO is True
     assert got["kernel_beats_sort_at"] == {str(w): True for w in ks.WINDOWS}
-    # The TPU rule alone gives 0: at R=256, W=32 loop is 10 us slower than radix.
-    assert got["loop_max_window_relative_only"] == 0
-    # Config 4 (R=4096, W=32) stays on loop; at W=64 radix already wins there.
+    # In this call the TPU rule alone agrees; the loop and radix launches at R <= 1024
+    # are shorter than their enqueue, whose scatter can tip it either way.
+    assert got["loop_max_window_relative_only"] == 64
+    # Config 4 (R=4096, W=32) stays on loop, which keeps W=64 at every R; past the
+    # register network (W > 64) its O(W^2) path loses to radix everywhere.
     results = _results()
-    assert results[(4096, 32)]["loop"] < results[(4096, 32)]["radix"]
-    assert results[(4096, 64)]["radix"] < results[(4096, 64)]["loop"]
+    for r in ks.RANKS:
+        for w in (32, 64):
+            assert results[(r, w)]["loop"] < results[(r, w)]["radix"]
+        assert results[(r, 128)]["radix"] < results[(r, 128)]["loop"]
 
 
 @pytest.mark.parametrize(
@@ -74,9 +78,9 @@ def test_a_path_wins_unless_slower_by_more_than_both_tolerances(ms, other, abs_t
 
 def test_a_noise_win_past_a_loss_does_not_raise_the_cap():
     table = dict(SWEEP_MS)
-    for r in ks.RANKS:  # loop "wins" W=128 at every R after losing W=64
-        table[f"{r}x128"] = (0.01, 1.0, 1.0, 1.0)
-    assert ks.derive(_results(table))["loop_max_window"] == 32
+    for r in ks.RANKS:  # loop "wins" W=256 at every R after losing W=128
+        table[f"{r}x256"] = (0.01, 1.0, 1.0, 1.0)
+    assert ks.derive(_results(table))["loop_max_window"] == 64
 
 
 def test_radix_auto_needs_a_win_at_every_window_past_the_cap():
@@ -85,7 +89,7 @@ def test_radix_auto_needs_a_win_at_every_window_past_the_cap():
     got = ks.derive(_results(table))
     assert got["radix_beats_sort_past_cap"] is False
     assert got["kernel_beats_sort_at"]["1024"] is False
-    assert got["loop_max_window"] == 32
+    assert got["loop_max_window"] == 64
 
 
 def test_the_sweep_runs_only_on_a_card():

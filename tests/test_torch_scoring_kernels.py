@@ -158,6 +158,48 @@ def test_build_records_ptxas_lines_and_seconds(tmp_path, monkeypatch):
     assert not [p for p in os.listdir(out.parent) if p.endswith(".tmp")]
 
 
+def test_build_passes_each_kernels_defines(tmp_path, monkeypatch):
+    """The loop kernel's register-network limit reaches nvcc from the one place the
+    Python side reads it, and a changed value is a different library."""
+    nvcc = _fake_nvcc(tmp_path, (
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write(' '.join(a for a in sys.argv if a.startswith('-D')))"
+    ))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: nvcc)
+    _build.build(sk.KERNEL_NAMES.values())
+    _, out, _ = _build._paths(sk.KERNEL_NAME)
+    assert out.read_text() == f"-DTR_NETWORK_MAX_WINDOW={sk.NETWORK_MAX_WINDOW}"
+    _, other, _ = _build._paths(sk.KERNEL_NAMES["radix"])
+    assert other.read_text() == ""
+    monkeypatch.setitem(_build.DEFINES, sk.KERNEL_NAME, {"TR_NETWORK_MAX_WINDOW": 32})
+    assert _build._paths(sk.KERNEL_NAME)[1] != out
+
+
+def test_ptxas_lines_are_grouped_by_kernel():
+    """``chip_smoke.py`` reads each loop-kernel instance's registers and local memory
+    from the build's ptxas lines (the format of ``nvcc -Xptxas -v``)."""
+    stderr = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_Z6kernelILi32EEvPf' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z6kernelILi32EEvPf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 0 barriers, 440 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z6kernelILi64EEvPf' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z6kernelILi64EEvPf",
+        "    24 bytes stack frame, 20 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 0 barriers, 440 bytes cmem[0]",
+    ])
+    lines = _build._ptxas_lines(stderr)
+    assert not any("gmem" in line or "Function properties" in line for line in lines)
+    assert _build.ptxas_by_kernel(lines) == {
+        "_Z6kernelILi32EEvPf": {"registers": 56, "stack_frame": 0, "spill_stores": 0,
+                                "spill_loads": 0},
+        "_Z6kernelILi64EEvPf": {"registers": 255, "stack_frame": 24, "spill_stores": 20,
+                                "spill_loads": 16},
+    }
+
+
 def test_failed_build_raises(tmp_path, monkeypatch):
     nvcc = _fake_nvcc(tmp_path, "print('error: bad kernel', file=sys.stderr); sys.exit(2)")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
@@ -175,8 +217,9 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("w", [1, 7, 32, 128, 256])
+@pytest.mark.parametrize("w", [1, 2, 7, 31, 32, 33, 63, 64, 65, 128, 256])
 def test_cuda_kernel_matches_plain_version(cuda, w):
+    """Every size of the register network (W <= 64) and the general path past it."""
     data, counts = _windows(100 + w, 64, 64, w)
     d = torch.from_numpy(data).to(cuda)
     c = torch.from_numpy(counts).to(cuda)
@@ -190,8 +233,9 @@ def test_cuda_kernel_matches_plain_version(cuda, w):
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_reads_the_strided_ring(cuda):
-    data, counts = _windows(7, 256, 64, 32)
+@pytest.mark.parametrize("w", [31, 32, 64, 65])
+def test_cuda_kernel_reads_the_strided_ring(cuda, w):
+    data, counts = _windows(7, 256, 64, w)
     ring = torch.from_numpy(np.ascontiguousarray(data.transpose(2, 0, 1))).to(cuda)
     c = torch.from_numpy(counts).to(cuda)
     km, kw = sk.fused_median_weights(ring.permute(1, 2, 0), c, mode="loop")

@@ -34,6 +34,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+#: ``-D`` macros each kernel's source is compiled with, by kernel name. A limit that
+#: the source and the Python side both need is set here once: the source does not
+#: compile without it, and ``scoring_kernels`` reads it from here.
+DEFINES: dict[str, dict[str, int]] = {
+    "median_weights": {"TR_NETWORK_MAX_WINDOW": 64},
+}
 
 _lock = threading.Lock()
 _loaded: dict[str, "BuiltLibrary"] = {}
@@ -62,11 +68,15 @@ def find_nvcc() -> str:
     )
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{k}={v}" for k, v in sorted(DEFINES.get(name, {}).items()))
+
+
 def _paths(name: str) -> tuple[Path, Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"kernel source {src} is missing")
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
     for header in sorted(CSRC_DIR.glob("*.cuh")):  # sources include them
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
@@ -75,11 +85,34 @@ def _paths(name: str) -> tuple[Path, Path, Path]:
 
 
 def _ptxas_lines(stderr: str) -> tuple[str, ...]:
+    """ptxas's register, shared-memory and spill lines, each kernel's after the line
+    that names it (``Compiling entry function``)."""
+    keys = ("entry function", "registers", "spill", "smem")
     return tuple(
-        line.strip()
-        for line in stderr.splitlines()
-        if "registers" in line or "spill" in line or "smem" in line
+        line.strip() for line in stderr.splitlines() if any(k in line for k in keys)
     )
+
+
+def ptxas_by_kernel(lines) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name) of a build's ptxas lines: ``registers``,
+    ``stack_frame``, ``spill_stores`` and ``spill_loads`` in bytes or counts."""
+    out: dict[str, dict[str, int]] = {}
+    current = None
+    for line in lines:
+        if "entry function" in line:
+            current = out.setdefault(line.split("'")[1], {})
+            continue
+        if current is None:
+            continue
+        words = line.replace(",", " ").split()
+        for i, w in enumerate(words[2:], 2):
+            if w == "registers" and words[i - 1].isdigit():
+                current["registers"] = int(words[i - 1])
+            elif w == "stack" and words[i - 2].isdigit():
+                current["stack_frame"] = int(words[i - 2])
+            elif w == "spill" and words[i - 2].isdigit() and i + 1 < len(words):
+                current[f"spill_{words[i + 1]}"] = int(words[i - 2])
+    return out
 
 
 def build(names: Iterable[str]) -> None:
@@ -98,7 +131,7 @@ def build(names: Iterable[str]) -> None:
     procs = []
     for name, src, out, meta in pending:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(src)]
         procs.append((name, out, meta, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )))

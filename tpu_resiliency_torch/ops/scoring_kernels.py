@@ -6,8 +6,11 @@ reduces raw timing windows ``[R, S, W]`` to per-(rank, signal) medians and weigh
 Three formulations, one hand-written CUDA kernel each, all launched through
 :func:`fused_median_weights`:
 
-- ``loop`` (``csrc/median_weights.cu``): each element's stable rank by W compare
-  passes, O(W²); the counterpart of the TPU ``loop`` kernel and its shared tail.
+- ``loop`` (``csrc/median_weights.cu``): the counterpart of the TPU ``loop`` kernel
+  and its shared tail. Up to ``NETWORK_MAX_WINDOW`` (64) a thread holds its window in
+  registers and sorts it with a bitonic network, so order statistic k is the sorted
+  value at k, exactly what the stable rank picks; past it, each element's stable rank
+  by W compare passes, O(W²). Its plain version keeps the JAX kernel's rank passes.
 - ``pairwise`` (``csrc/median_weights_pairwise.cu``): the same ranks, every element
   of a window ranked in parallel against all others; explicit ``mode="pairwise"``
   only, as in the JAX package.
@@ -52,6 +55,10 @@ MAX_SHARED_BYTES = 232_448
 #: Largest window the loop kernel takes: one warp's masked windows must fit in
 #: shared memory.
 MAX_WINDOW = MAX_SHARED_BYTES // (4 * 32)
+#: Largest window the loop kernel sorts in one thread's registers; longer windows
+#: take its O(W²) shared-memory path. Its source is compiled with this value
+#: (``_build.DEFINES``, ``kNetworkMaxWindow`` in ``csrc/median_weights.cu``).
+NETWORK_MAX_WINDOW = _build.DEFINES[KERNEL_NAME]["TR_NETWORK_MAX_WINDOW"]
 #: The pairwise and radix kernels stage 32 windows per block (``csrc/window_tile.cuh``)
 #: in rows padded to 33 words, beside at most 384 B of static shared memory.
 TILE_WINDOWS = 32
@@ -65,9 +72,11 @@ MODE_MAX_WINDOW = {"loop": MAX_WINDOW, "pairwise": TILE_MAX_WINDOW, "radix": TIL
 #: Largest window ``loop`` is auto-selected for; past it ``radix`` runs. Set from the
 #: H100 sweep (``ops/kernel_sweep.py`` as run by ``chip_smoke.py`` phase ``sweep``, on
 #: an NVIDIA H100 80GB HBM3 at 700 W; its table is in PERF.md section 6 and in
-#: ``tests/test_torch_kernel_sweep.py``): its ``loop_max_window``. At R = 4096 ``loop``
-#: beats ``radix`` 0.088 to 0.109 ms at W = 32, and loses 0.27 to 0.16 ms at W = 64.
-DEFAULT_MAX_WINDOW = 32
+#: ``tests/test_torch_kernel_sweep.py``): its ``loop_max_window``. With the register
+#: network ``loop`` beats ``radix`` at every R up to W = 64 (at R = 4096: 0.025 to
+#: 0.110 ms at W = 32, 0.052 to 0.162 ms at W = 64), and its O(W²) path loses W = 128
+#: (1.13 to 0.25 ms).
+DEFAULT_MAX_WINDOW = 64
 #: The port's own override of the cap; a TPU sweep's export never sets it.
 MAX_WINDOW_ENV = "TPU_RESILIENCY_CUDA_MAX_WINDOW"
 #: Auto-selection of ``radix`` past the cap (explicit ``mode="radix"`` always works).
@@ -120,9 +129,16 @@ def kernel_supported(window: int, signals: int, mode: str | None = None) -> bool
     return signals >= 1 and 1 <= window <= cap
 
 
+def network_size(window: int) -> int:
+    """The loop kernel's register network at ``window`` (up to
+    :data:`NETWORK_MAX_WINDOW`) sorts the smallest power of two of slots ≥ W."""
+    return 1 << max(window - 1, 0).bit_length()
+
+
 def block_threads(window: int) -> int:
     """Threads per block of the loop kernel at ``window``: the widest of 128/64/32
-    whose staged windows (``threads * window`` f32 values) fit in shared memory."""
+    whose staged windows (``threads * window`` f32 values) fit in shared memory (the
+    register network, W ≤ 64, stages none and takes 128)."""
     threads = MAX_THREADS
     while threads > 32 and threads * window * 4 > MAX_SHARED_BYTES:
         threads //= 2
