@@ -10,24 +10,31 @@ the card's name and power limit:
 1. ``device``: the card, its count, and ``nvidia-smi``'s name and power limit.
 2. ``build``: each kernel's build seconds and ptxas register / shared-memory / spill
    lines; the loop kernel's registers, stack frame and spills per instance of its
-   register network (P = 1 .. 64) and of its general path. A network instance with
-   P <= 32 that spills or keeps a stack frame fails the run.
+   register network (P = 1 .. 64) and of its general path, and the same for the
+   pairwise kernel's register instances (P = 1 .. 64) and its tiled path, each with
+   its SASS instruction count (``cuobjdump``; each register instance is one unrolled
+   run, so that is its instructions per thread). A register instance of either kernel
+   with P <= 32 that spills or keeps a stack frame fails the run.
 3. ``kernel_vs_plain``: every kernel against its own plain PyTorch version on the
    card. ``loop`` at config 4 (4096 ranks x 64 signals x window 32; the ring's
    permuted view and a contiguous copy, random counts in [0, W]) and at edge windows
    W in {1, 2, 7, 31, 32, 33, 63, 64, 65, 128, 256} (each size of its register
    network and the switch to its general path past 64); ``pairwise`` at config 4 and
-   ``radix`` at the long window's full size (4096 x 64 x 512), each on the view and a
-   copy; both at edge windows W in {1, 7, 32, 129, 256, 512, 1024}. Edge windows hold
-   ties, all-equal windows, negative values, -0.0 and counts 0 and 1.
+   at W in {1, 2, 7, 31, 32, 33, 63, 64, 65} (each size of its register path and the
+   switch to its tiled path past 64); ``radix`` at the long window's full size
+   (4096 x 64 x 512), on the view and a copy; ``pairwise`` and ``radix`` at edge
+   windows W in {1, 7, 32, 129, 256, 512, 1024}. Edge windows hold ties, all-equal
+   windows, negative values, -0.0 and counts 0 and 1.
    ``radix_adversarial`` windows (ties, one value, signed zeros, keys that differ only
    in their lowest bits, one outlier, telemetry around 1.0, counts 0, 1, W and past W)
    meet ``radix`` at W in {1, 7, 33, 129, 512} and the tile's largest window (1758),
    and ``loop`` at W in {1, 7, 32, 33, 64, 65}, passed to
-   ``fused_median_weights`` directly. Medians must be equal bit for
+   ``fused_median_weights`` directly; ``pairwise`` meets them at its nine windows
+   with +-inf added (``with_infinities``). Medians must be equal bit for
    bit, compared as int32 (the modes differ in the sign of a zero median, so each
    kernel is held to its own plain version); across modes they must be equal by
-   value. Weights must lie within ``weight_rtol(W)`` of the window's sum of |x|.
+   value. Weights must lie within ``weight_rtol(W)`` of the window's sum of |x|, and
+   be equal where they are not finite.
 4. ``main_path``: ``MeshTelemetry`` at config 4 on the card, fed the seeded telemetry
    of ``bench.py`` (5% slow ranks at 1.6x): W pushes, a report, W + 5 more pushes
    (the ring wraps), a second report. The auto-selected kernel's launch count must
@@ -45,17 +52,21 @@ the card's name and power limit:
    ``fused_median_weights(..., mode=...)`` on the ring, then
    ``ReportGenerator.generate_summary_report``. Its launch count must rise and its
    mask equal the main path's first report's.
-7. ``sweep``: ``tpu_resiliency_torch.ops.kernel_sweep`` over W in {32 .. 1024} x
+7. ``times``, at config 4 and at W = 512, after a warm-up. Push per step and score
+   per report are CUDA-event times (what users pay, the host's enqueue included).
+   The kernels, their plain versions, the sort-based masked median + total,
+   ``torch.nanquantile`` + ``torch.nansum`` as the library yardstick (never called
+   by the port) and the radix kernel on windows of one value each, where no digit
+   round runs (its staging, register load, weight and hi pass alone), are device
+   times (``kernel_sweep.device_ms``: the profiler's kernel durations per call), with
+   the L2 flushed before each call; each also gives its CUDA-event time as
+   ``events_ms``; every event time is taken before the process's first profiler
+   session. Then the radix kernel's digit rounds on the long window's data
+   (``digit_work``), which also give its operation count for the bound, and the
+   compare rate the operation bounds are priced at, with its source.
+8. ``sweep``: ``tpu_resiliency_torch.ops.kernel_sweep`` over W in {32 .. 1024} x
    R in {256, 1024, 4096} (S = 64): each kernel and the sort path, and the loop cap
    and radix verdict it derives, beside the defaults the package carries.
-8. ``times``: CUDA-event times after a warm-up, L2 flushed before each timed
-   reduction, at config 4 and at W = 512: push per step, score per report, the
-   kernels, their plain versions, the sort-based masked median + total, and
-   ``torch.nanquantile`` + ``torch.nansum`` as the library yardstick (never called
-   by the port); the radix kernel on windows of one value each, where no digit round
-   runs (its staging, register load, weight and hi pass alone); and its digit rounds
-   on the long window's data (``digit_work``), which also give its operation count
-   for the bound.
 9. ``breakdown``: ``torch.profiler`` device time by kernel over a few reports at
    config 4 and at W = 512.
 
@@ -70,6 +81,7 @@ from __future__ import annotations
 import json
 import re
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -86,13 +98,16 @@ EDGE_WINDOWS = (1, 2, 7, 31, 32, 33, 63, 64, 65, 128, 256)
 MODE_EDGE_WINDOWS = (1, 7, 32, 129, 256, 512, 1024)
 RADIX_ADVERSARIAL_WINDOWS = (1, 7, 33, 129, 512)  # and the tile's largest window
 LOOP_ADVERSARIAL_WINDOWS = (1, 7, 32, 33, 64, 65)
+PAIRWISE_WINDOWS = (1, 2, 7, 31, 32, 33, 63, 64, 65)  # edge and adversarial
 EDGE_RANKS = EDGE_SIGNALS = 64
 REPORT_INTERVAL = 100  # steps per report for the amortised per-step cost
-# H100 SXM published peaks (NVIDIA data sheet), used for the kernels' bounds. The
-# radix key operations are 32-bit integer operations; the f32 non-tensor rate is the
-# one 32-bit non-tensor rate the sheet gives.
+# The kernels' bounds. Bytes at the H100 SXM's published memory rate (NVIDIA data
+# sheet). Operations: every kernel's work is compares, minima and maxima, or 32-bit
+# integer adds and logic (radix keys), which issue at 64 results per clock per SM on
+# sm_90 (CUDA C++ Programming Guide, throughput of native arithmetic instructions);
+# the rate is that times the card's SM count and its largest SM clock.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+COMPARES_PER_CLOCK_PER_SM = 64
 L2_FLUSH_BYTES = 64 << 20  # larger than the 50 MB L2
 
 
@@ -180,11 +195,81 @@ def radix_adversarial(w, seed, ranks=64, signals=64):
     return data, counts.astype(np.int32)
 
 
+def with_infinities(data, seed):
+    """``data`` with +inf in about 30% of the slots of ranks r % 8 == 0 and -inf in
+    as many of ranks r % 8 == 6: valid infinities that tie with the +inf padding."""
+    rng = np.random.default_rng(seed)
+    out = data.copy()
+    hit = rng.random(out.shape) < 0.3
+    fam = np.arange(out.shape[0]) % 8
+    out[(fam == 0)[:, None, None] & hit] = np.inf
+    out[(fam == 6)[:, None, None] & hit] = -np.inf
+    return out
+
+
+def compare_rate(torch):
+    """``(compares per second, source)``: the card's SM count x 64 per clock x its
+    largest SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    mhz = float(out.stdout.split()[0])
+    rate = sms * COMPARES_PER_CLOCK_PER_SM * mhz * 1e6
+    return rate, (f"{sms} SMs x {COMPARES_PER_CLOCK_PER_SM} compares per clock per SM x "
+                  f"{mhz:.0f} MHz (nvidia-smi clocks.max.sm)")
+
+
+def sass_instructions(lib_path, nvcc):
+    """Instructions (NOPs left out) per kernel function of a built library, by
+    mangled name, from ``cuobjdump -sass`` beside ``nvcc``."""
+    cuobjdump = Path(nvcc).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = 0
+        elif current and re.search(r"/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", line):
+            counts[current] += 1
+    return counts
+
+
+def register_instances(by_kernel, pattern, sass):
+    """``({P: info}, other)`` of a kernel library's ptxas lines grouped by kernel
+    (``_build.ptxas_by_kernel``): each instance whose mangled name matches
+    ``pattern`` (its template argument P in the first group) with its registers,
+    stack frame, spills and SASS instructions, and the info of the one other kernel
+    (the general or tiled path)."""
+    instances, other = {}, None
+    for name, info in by_kernel.items():
+        info = dict(info, sass_instructions=sass.get(name))
+        m = re.search(pattern, name)
+        if m:
+            instances[int(m.group(1))] = info
+        else:
+            other = info
+    return instances, other
+
+
 def bitonic_comparators(p):
     """Compare-exchanges of the loop kernel's bitonic network over ``p`` slots (a
     power of two): p/2 per sub-stage, log2(p) (log2(p) + 1) / 2 sub-stages."""
     log = p.bit_length() - 1
     return p // 2 * log * (log + 1) // 2
+
+
+def pairwise_compares(w, register_max_window):
+    """Compares the pairwise kernel makes per window of ``w`` slots: on its register
+    path (W up to ``register_max_window``) one per pair of the P slots it holds, P the
+    smallest power of two >= W; past it, on the tiled path, W^2, every ordered pair."""
+    if w <= register_max_window:
+        p = 1 << max(w - 1, 0).bit_length()
+        return p * (p - 1) // 2
+    return w * w
 
 
 def digit_work(data, counts, chunk=1 << 15):
@@ -287,8 +372,10 @@ class Smoke:
 
     def compare(self, label, mode, data, counts):
         """Kernel of ``mode`` vs its plain version on the same card tensors. Medians
-        must be equal bit for bit (as int32); returns ``(largest absolute weight
-        error, the kernel's medians)``."""
+        must be equal bit for bit (as int32); weights within ``weight_rtol(W)`` of the
+        window's sum of |x|, and equal where they are not finite (a window with
+        infinities). Returns ``(largest absolute weight error, the kernel's
+        medians)``."""
         from tpu_resiliency_torch.ops.scoring_kernels import PLAIN_VERSIONS, fused_median_weights
         from tpu_resiliency_torch.telemetry.scoring import masked_total
 
@@ -300,7 +387,11 @@ class Smoke:
             bad = int((med_k.view(torch.int32) != med_p.view(torch.int32)).sum())
             raise AssertionError(f"{label} {mode}: {bad} medians differ from the plain version")
         abs_sum = masked_total(data.abs(), counts)
-        err = (wt_k - wt_p).abs()
+        finite = torch.isfinite(wt_p)
+        same = (wt_k == wt_p) | (torch.isnan(wt_k) & torch.isnan(wt_p))
+        if not bool(same[~finite].all()):
+            raise AssertionError(f"{label} {mode}: non-finite weights differ")
+        err = torch.where(finite, (wt_k - wt_p).abs(), 0.0)
         rtol = weight_rtol(data.shape[-1])
         if not bool((err <= rtol * abs_sum).all()):
             raise AssertionError(f"{label} {mode}: weights off by up to {float(err.max())}")
@@ -330,7 +421,8 @@ def main() -> int:
 
     fused_median_weights = sk.fused_median_weights
     # Median ms of reps calls, each between its own CUDA events after the L2 cache
-    # was flushed (a report finds the ring cold).
+    # was flushed (a report finds the ring cold): the host's enqueue included, as
+    # users pay it. Kernel times are device times (kernel_sweep.device_ms).
     time_each = kernel_sweep.time_ms
     dev = torch.device("cuda")
     card = card_name_and_power_limit()
@@ -346,28 +438,36 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(sk.KERNEL_NAMES.values())
     built = {mode: _build.load(name) for mode, name in sk.KERNEL_NAMES.items()}
-    # The loop kernel's instances: its register network per P, and its general path.
-    network, general = {}, None
-    for name, info in _build.ptxas_by_kernel(built["loop"].ptxas).items():
-        m = re.search(r"network_kernelILi(\d+)E", name)
-        if m:
-            network[int(m.group(1))] = info
-        else:
-            general = info
-    want = [1 << i for i in range(sk.NETWORK_MAX_WINDOW.bit_length())]
-    if sorted(network) != want or general is None:
-        raise AssertionError(f"loop kernel networks P = {sorted(network)}, want {want} and the general path")
-    for p, info in network.items():
-        local = info.get("stack_frame", 0) + info.get("spill_stores", 0) + info.get("spill_loads", 0)
-        if p <= 32 and local:
-            raise AssertionError(f"loop network P = {p} keeps {local} bytes in local memory: {info}")
-    loop_instances = {**{f"network_p{p}": network[p] for p in want}, "general": general}
+    nvcc = _build.find_nvcc()
+
+    def instances(mode, pattern, top, other_name):
+        """Each register instance P = 1 .. top of a kernel and its other path; a
+        missing instance, or one with P <= 32 that keeps local memory, fails."""
+        lib = built[mode]
+        regs, other = register_instances(_build.ptxas_by_kernel(lib.ptxas), pattern,
+                                         sass_instructions(lib.lib._name, nvcc))
+        want = [1 << i for i in range(top.bit_length())]
+        if sorted(regs) != want or other is None:
+            raise AssertionError(f"{mode} register instances P = {sorted(regs)}, want {want} "
+                                 f"and the {other_name} path")
+        for p, info in regs.items():
+            local = sum(info.get(k, 0) for k in ("stack_frame", "spill_stores", "spill_loads"))
+            if p <= 32 and local:
+                raise AssertionError(f"{mode} register instance P = {p} keeps {local} bytes "
+                                     f"in local memory: {info}")
+        return {**{f"p{p}": regs[p] for p in want}, other_name: other}
+
+    loop_instances = instances("loop", r"network_kernelILi(\d+)E", sk.NETWORK_MAX_WINDOW,
+                               "general")
+    pairwise_instances = instances("pairwise", r"registers_kernelILi(\d+)E",
+                                   sk.PAIRWISE_REGISTER_MAX_WINDOW, "tiled")
     smoke.emit(
         "build", wall_seconds=time.perf_counter() - t0,
         kernels={mode: {"source": name, "build_seconds": b.build_seconds,
                         "ptxas": list(b.ptxas)}
                  for (mode, name), b in zip(sk.KERNEL_NAMES.items(), built.values())},
         loop_instances=loop_instances,
+        pairwise_instances=pairwise_instances,
         loop_threads_per_block={w: sk.block_threads(w) for w in (W, LONG_W)},
         tile_dynamic_shared_bytes_per_block={w: w * (sk.TILE_WINDOWS + 1) * 4
                                              for w in (W, LONG_W, 1024)},
@@ -422,6 +522,15 @@ def main() -> int:
         d, c = radix_adversarial(w, seed=80 + i)
         errs["loop"][f"adversarial_w{w}"], _ = smoke.compare(
             f"adversarial_w{w}", "loop", torch.tensor(d, device=dev), torch.tensor(c, device=dev))
+    # pairwise: each size of its register path and the switch to the tiled one.
+    for i, w in enumerate(PAIRWISE_WINDOWS):
+        d, c = edge_case(w, seed=90 + i)
+        errs["pairwise"][f"edge_w{w}"], _ = smoke.compare(
+            f"edge_w{w}", "pairwise", torch.tensor(d, device=dev), torch.tensor(c, device=dev))
+        d, c = radix_adversarial(w, seed=100 + i)
+        d = with_infinities(d, seed=110 + i)
+        errs["pairwise"][f"adversarial_w{w}"], _ = smoke.compare(
+            f"adversarial_w{w}", "pairwise", torch.tensor(d, device=dev), torch.tensor(c, device=dev))
     torch.cuda.empty_cache()
     max_abs_err = {mode: max(e.values()) for mode, e in errs.items()}
     smoke.emit("kernel_vs_plain", medians_equal_as_int32=True, equal_by_value_across=by_value,
@@ -573,30 +682,15 @@ def main() -> int:
         explicit[mode] = {"launches": n, "f1": f1(pred_m, truth), "flagged": int(pred_m.sum())}
     smoke.emit("explicit_mode_path", ranks=R, signals=S, window=W, modes=explicit)
 
-    # 7. sweep -------------------------------------------------------------------
-    t0 = time.perf_counter()
-    sweep = kernel_sweep.run()
-    smoke.emit("sweep", seconds=time.perf_counter() - t0, **sweep,
-               defaults={"loop_max_window": sk.DEFAULT_MAX_WINDOW,
-                         "radix_auto": sk.DEFAULT_RADIX_AUTO})
-
-    # 8. times -------------------------------------------------------------------
+    # 7. times -------------------------------------------------------------------
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-
-    def library(view, counts):
-        valid = torch.arange(view.shape[-1], device=dev) < counts[..., None]
-        x_nan = torch.where(valid, view, float("nan")).contiguous()
-        return time_each(
-            lambda: (torch.nanquantile(x_nan, 0.5, dim=-1, interpolation="midpoint"),
-                     torch.nansum(x_nan, dim=-1)),
-            reps=10, flush=flush,
-        )
+    ops_per_s, ops_rate_source = compare_rate(torch)
 
     def bounds(view, ops):
         r, s, w = view.shape
         bytes_moved = (r * s * w + r * s + 2 * r * s) * 4
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        ops_ms = ops / ops_per_s * 1e3
         return {"bytes": bytes_moved, "ops": ops, "bytes_bound_ms": bytes_ms,
                 "ops_bound_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -619,63 +713,95 @@ def main() -> int:
                     "report_wall_ms_median": statistics.median(wall),
                     "amortised_ms_per_step": push_ms + score_ms / REPORT_INTERVAL}
 
+    # Every CUDA-event time first, before the process's first profiler session
+    # (device_ms, the sweep, the breakdown): the spans users pay, as they pay them.
     mt_t = MeshTelemetry(R, signal_names=names, window=W)
     st, t4 = path_times(mt_t, rows, reps_push=500)
-    view4, counts4 = st.data.permute(1, 2, 0), st.counts
-    kernel_ms = {m: time_each(lambda m=m: fused_median_weights(view4, counts4, mode=m),
-                                    reps=50, flush=flush) for m in ("loop", "pairwise")}
-    plain_ms = {m: time_each(lambda m=m: sk.PLAIN_VERSIONS[m](view4, counts4),
-                                   reps=10, flush=flush) for m in ("loop", "pairwise")}
-    sort4_ms = time_each(
-        lambda: (masked_median(view4, counts4), masked_total(view4, counts4)), reps=20, flush=flush
-    )
-    library_ms = {"config4": library(view4, counts4)}
-    # Operations: the loop kernel's network does two FMNMX per compare-exchange;
-    # pairwise compares every pair of slots.
-    bound = {"loop": bounds(view4, R * S * 2 * bitonic_comparators(sk.network_size(W))),
-             "pairwise": bounds(view4, R * S * W * W)}
-    smoke.emit("times", ranks=R, signals=S, window=W, report_interval=REPORT_INTERVAL, **t4,
-               kernel_ms=kernel_ms, plain_ms=plain_ms, sort_ms=sort4_ms,
-               nanquantile_ms=library_ms["config4"],
-               bound={m: bound[m] for m in ("loop", "pairwise")})
     mt_lt = MeshTelemetry(R, signal_names=names, window=LONG_W)
     st_l, tl = path_times(mt_lt, long_ring, reps_push=200)
+    view4, counts4 = st.data.permute(1, 2, 0), st.counts
     view_l, counts_l = st_l.data.permute(1, 2, 0), st_l.counts
-    kernel_ms["radix"] = time_each(
-        lambda: fused_median_weights(view_l, counts_l, mode="radix"), reps=30, flush=flush
-    )
-    plain_ms["radix"] = time_each(
-        lambda: sk.PLAIN_VERSIONS["radix"](view_l, counts_l), reps=5, flush=flush
-    )
-    # The same launch on windows of one value each: no digit round runs, so this is
+    # The radix launch on windows of one value each: no digit round runs, so this is
     # the tile's staging, the register load, the weight and the hi pass alone.
     one_value = torch.ones_like(long_ring).permute(1, 2, 0)
-    radix_no_round_ms = time_each(
-        lambda: fused_median_weights(one_value, counts_l, mode="radix"), reps=30, flush=flush
-    )
-    del one_value
-    sortl_ms = time_each(
-        lambda: (masked_median(view_l, counts_l), masked_total(view_l, counts_l)),
-        reps=10, flush=flush,
-    )
-    library_ms["long"] = library(view_l, counts_l)
+
+    def nan_masked(view, counts):  # the library's input, made outside the timed call
+        valid = torch.arange(view.shape[-1], device=dev) < counts[..., None]
+        return torch.where(valid, view, float("nan")).contiguous()
+
+    x_nan = {"config4": nan_masked(view4, counts4), "long": nan_masked(view_l, counts_l)}
+
+    def library(x):
+        return (torch.nanquantile(x, 0.5, dim=-1, interpolation="midpoint"),
+                torch.nansum(x, dim=-1))
+
+    # (cell, what, mode or None): (fn, reps)
+    timed_calls = {
+        **{("config4", "kernel", m): (lambda m=m: fused_median_weights(view4, counts4, mode=m), 50)
+           for m in ("loop", "pairwise")},
+        **{("config4", "plain", m): (lambda m=m: sk.PLAIN_VERSIONS[m](view4, counts4), 10)
+           for m in ("loop", "pairwise")},
+        ("config4", "sort", None): (lambda: (masked_median(view4, counts4),
+                                             masked_total(view4, counts4)), 20),
+        ("config4", "nanquantile", None): (lambda: library(x_nan["config4"]), 10),
+        ("long", "kernel", "radix"): (
+            lambda: fused_median_weights(view_l, counts_l, mode="radix"), 30),
+        ("long", "plain", "radix"): (lambda: sk.PLAIN_VERSIONS["radix"](view_l, counts_l), 5),
+        ("long", "radix_no_round", None): (
+            lambda: fused_median_weights(one_value, counts_l, mode="radix"), 30),
+        ("long", "sort", None): (lambda: (masked_median(view_l, counts_l),
+                                          masked_total(view_l, counts_l)), 10),
+        ("long", "nanquantile", None): (lambda: library(x_nan["long"]), 10),
+    }
+    events = {k: time_each(fn, reps, flush) for k, (fn, reps) in timed_calls.items()}
+    device = {k: kernel_sweep.device_ms(fn, reps, flush) for k, (fn, reps) in timed_calls.items()}
+    del one_value, x_nan
+
+    timed = {k: {"ms": device[k], "events_ms": events[k]} for k in timed_calls}
+
+    def times_of(cell):
+        """``{what: times}`` of a cell, ``{what: {mode: times}}`` where a mode runs."""
+        out = {}
+        for (c, what, mode), t in timed.items():
+            if c == cell:
+                if mode is None:
+                    out[what] = t
+                else:
+                    out.setdefault(what, {})[mode] = t
+        return out
+
+    cell_of = {"loop": "config4", "pairwise": "config4", "radix": "long"}
+    # Operations: the loop kernel's network does two FMNMX per compare-exchange; the
+    # pairwise kernel's register path one compare per pair of slots (the TPU kernel
+    # and the tiled path compare every ordered pair, W^2 per window).
+    pairwise_ops = R * S * pairwise_compares(W, sk.PAIRWISE_REGISTER_MAX_WINDOW)
+    bound = {"loop": bounds(view4, R * S * 2 * bitonic_comparators(sk.network_size(W))),
+             "pairwise": bounds(view4, pairwise_ops)}
+    smoke.emit("times", ranks=R, signals=S, window=W, report_interval=REPORT_INTERVAL, **t4,
+               **times_of("config4"), compares_per_s=ops_per_s,
+               compares_per_s_source=ops_rate_source,
+               bound={m: bound[m] for m in ("loop", "pairwise")})
     # The radix kernel's key operations on this data (its source's head says how
     # they are counted): 2 per candidate of each digit round, 3 per valid key.
     rounds, examined = digit_work(view_l, counts_l)
     radix_ops = int(2 * examined.sum() + 3 * counts_l.clamp(0, LONG_W).sum())
     bound["radix"] = bounds(view_l, radix_ops)
-    swept = sweep["results_ms"][f"{R}x{LONG_W}"]
     smoke.emit("times", ranks=R, signals=S, window=LONG_W, report_interval=REPORT_INTERVAL,
-               **tl, kernel_mode=mt_lt.kernel_mode, radix_kernel_ms=kernel_ms["radix"],
-               radix_no_round_ms=radix_no_round_ms, radix_plain_ms=plain_ms["radix"],
-               sort_ms=sortl_ms,
-               nanquantile_ms=library_ms["long"], bound=bound["radix"],
+               **tl, kernel_mode=mt_lt.kernel_mode, **times_of("long"), bound=bound["radix"],
                radix_rounds={"mean": float(rounds.double().mean()), "max": int(rounds.max()),
                              "histogram": {str(i): int(n) for i, n in
                                            enumerate(torch.bincount(rounds).tolist()) if n},
-                             "examined_per_key": float(examined.sum()) / view_l.numel()},
-               loop_and_pairwise_kernel_ms_from_sweep={m: swept[m] for m in ("loop", "pairwise")})
+                             "examined_per_key": float(examined.sum()) / view_l.numel()})
     del rounds, examined
+    torch.cuda.empty_cache()
+
+    # 8. sweep -------------------------------------------------------------------
+    t0 = time.perf_counter()
+    sweep = kernel_sweep.run()
+    smoke.emit("sweep", seconds=time.perf_counter() - t0, **sweep,
+               profiler_sessions_rerun=kernel_sweep.device_ms.reruns,
+               defaults={"loop_max_window": sk.DEFAULT_MAX_WINDOW,
+                         "radix_auto": sk.DEFAULT_RADIX_AUTO})
 
     # 9. breakdown ---------------------------------------------------------------
     from torch.profiler import ProfilerActivity, profile
@@ -712,9 +838,12 @@ def main() -> int:
         b = bound[mode]
         kernels.append(dict(
             KERNELS[mode], launches=path_launches[mode], max_abs_err=max_abs_err[mode],
-            ms=kernel_ms[mode], plain_ms=plain_ms[mode], bound_ms=b["bound_ms"],
-            bound_by=b["bound_by"],
-            library_ms=library_ms["long" if mode == "radix" else "config4"],
+            ms=timed[(cell_of[mode], "kernel", mode)]["ms"],
+            events_ms=timed[(cell_of[mode], "kernel", mode)]["events_ms"],
+            plain_ms=timed[(cell_of[mode], "plain", mode)]["ms"],
+            plain_events_ms=timed[(cell_of[mode], "plain", mode)]["events_ms"],
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+            library_ms=timed[(cell_of[mode], "nanquantile", None)]["ms"],
             shape=[R, S, LONG_W if mode == "radix" else W],
             verdict="medians equal bit for bit as int32; weights within weight_rtol(W) "
                     "of the window's sum of |x|",

@@ -136,6 +136,15 @@ def _bits(x):
     return np.asarray(x, np.float32).view(np.int32)
 
 
+def _as_xla_gives(x):
+    """``x`` with each subnormal flushed to a zero of its sign, as XLA on the CPU
+    leaves an f32 result. The mean of two order statistics can be subnormal (half the
+    smallest normal); torch and the CUDA kernels keep it."""
+    x = np.asarray(x, np.float32)
+    with np.errstate(invalid="ignore"):
+        return np.where(np.abs(x) < np.finfo(np.float32).tiny, np.copysign(np.float32(0), x), x)
+
+
 def _jax(data, counts):
     jm, jw = jax_median_weights(jnp.asarray(data), jnp.asarray(counts), interpret=True, mode="loop")
     return np.asarray(jm), np.asarray(jw)
@@ -159,9 +168,9 @@ def _assert_weights_close(got, want, data, counts):
 
 def _assert_matches_both(data, counts):
     med, wt = model(data, counts)
-    for other in (_jax, _plain):
+    for other, seen in ((_jax, _as_xla_gives), (_plain, np.asarray)):
         om, ow = other(data, counts)
-        np.testing.assert_array_equal(_bits(med), _bits(om))
+        np.testing.assert_array_equal(_bits(seen(med)), _bits(om))
         _assert_weights_close(wt, ow, data, counts)
     return med, wt
 
@@ -286,8 +295,24 @@ def network_case(draw):
 def test_model_matches_both_on_random_windows(case):
     data, counts = case
     med, _ = model(data, counts)
-    for other in (_jax, _plain):
-        np.testing.assert_array_equal(_bits(med), _bits(other(data, counts)[0]))
+    for other, seen in ((_jax, _as_xla_gives), (_plain, np.asarray)):
+        np.testing.assert_array_equal(_bits(seen(med)), _bits(other(data, counts)[0]))
+
+
+def subnormal_mean_window():
+    """A window of 16 whose order statistics 4 and 5 (count 10) are the smallest
+    negative normal and 0: their mean, -2^-127, is subnormal."""
+    data = np.zeros((1, 4, 16), np.float32)
+    data[0, 0, 5:9] = -1.0
+    data[0, 0, 9] = -np.finfo(np.float32).tiny
+    return data, np.array([[10, 0, 0, 0]], np.int32)
+
+
+def test_a_subnormal_median_is_kept_and_only_xla_flushes_it():
+    data, counts = subnormal_mean_window()
+    med, _ = _assert_matches_both(data, counts)
+    assert med[0, 0] == np.float32(-2.0**-127)
+    assert _bits(_jax(data, counts)[0])[0, 0] == np.int32(-(2**31))  # -0.0
 
 
 # -- on the card ------------------------------------------------------------------------

@@ -113,6 +113,33 @@ def test_masked_median_and_total_match_jax():
     np.testing.assert_allclose(tt, jt, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("w", [1, 4, 7, 32])
+def test_masked_median_matches_jax_at_every_count(w):
+    """Counts 0 .. 2W + 1: from 2W on an order statistic lies past the window, where
+    ``jnp.take_along_axis`` gives NaN; the port must give NaN at the same places."""
+    rng = np.random.default_rng(100 + w)
+    counts = np.arange(2 * w + 2, dtype=np.int32)
+    data = np.round(rng.standard_normal((counts.size, w)), 1).astype(np.float32)
+    jm = np.asarray(jax_scoring.masked_median(jnp.asarray(data), jnp.asarray(counts)))
+    tm = scoring.masked_median(torch.from_numpy(data), torch.from_numpy(counts)).numpy()
+    np.testing.assert_array_equal(np.isnan(tm), np.isnan(jm))
+    np.testing.assert_array_equal(tm, jm)
+    assert np.isinf(tm[0]) and np.isnan(tm[2 * w :]).all() and not np.isnan(tm[: 2 * w]).any()
+
+
+def test_masked_median_past_twice_the_window_is_nan_as_in_jax():
+    data = np.array([[3.0, 1.0, 2.0, 5.0]] * 8, np.float32)
+    counts = np.array([0, 3, 4, 5, 7, 8, 9, 2**20], np.int32)
+    jm = np.asarray(jax_scoring.masked_median(jnp.asarray(data), jnp.asarray(counts)))
+    tm = scoring.masked_median(torch.from_numpy(data), torch.from_numpy(counts)).numpy()
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_array_equal(tm[:5], np.array([np.inf, 2.0, 2.5, 3.0, 5.0], np.float32))
+    assert np.isnan(tm[5:]).all()
+    jt = np.asarray(jax_scoring.masked_total(jnp.asarray(data), jnp.asarray(counts)))
+    tt = scoring.masked_total(torch.from_numpy(data), torch.from_numpy(counts)).numpy()
+    np.testing.assert_array_equal(tt, jt)
+
+
 @pytest.mark.parametrize("n", [4, 5, 16])
 def test_robust_z_takes_the_mean_of_the_two_middles(n):
     """``jnp.median`` of an even count is the mean of the two middle values;

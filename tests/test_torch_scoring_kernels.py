@@ -159,8 +159,9 @@ def test_build_records_ptxas_lines_and_seconds(tmp_path, monkeypatch):
 
 
 def test_build_passes_each_kernels_defines(tmp_path, monkeypatch):
-    """The loop kernel's register-network limit reaches nvcc from the one place the
-    Python side reads it, and a changed value is a different library."""
+    """The loop kernel's register-network limit and the pairwise kernel's register
+    limit reach nvcc from the one place the Python side reads them, and a changed
+    value is a different library."""
     nvcc = _fake_nvcc(tmp_path, (
         "out = sys.argv[sys.argv.index('-o') + 1]\n"
         "open(out, 'w').write(' '.join(a for a in sys.argv if a.startswith('-D')))"
@@ -172,6 +173,9 @@ def test_build_passes_each_kernels_defines(tmp_path, monkeypatch):
     assert out.read_text() == f"-DTR_NETWORK_MAX_WINDOW={sk.NETWORK_MAX_WINDOW}"
     _, other, _ = _build._paths(sk.KERNEL_NAMES["radix"])
     assert other.read_text() == ""
+    _, pairwise, _ = _build._paths(sk.KERNEL_NAMES["pairwise"])
+    assert pairwise.read_text() == (
+        f"-DTR_PAIRWISE_REGISTER_MAX_WINDOW={sk.PAIRWISE_REGISTER_MAX_WINDOW}")
     monkeypatch.setitem(_build.DEFINES, sk.KERNEL_NAME, {"TR_NETWORK_MAX_WINDOW": 32})
     assert _build._paths(sk.KERNEL_NAME)[1] != out
 
@@ -198,6 +202,34 @@ def test_ptxas_lines_are_grouped_by_kernel():
         "_Z6kernelILi64EEvPf": {"registers": 255, "stack_frame": 24, "spill_stores": 20,
                                 "spill_loads": 16},
     }
+
+
+def test_register_instances_carry_their_sass_instruction_counts(tmp_path):
+    """``chip_smoke.py``'s ``build`` phase reads each register instance's ptxas
+    lines and counts its SASS instructions (``cuobjdump -sass`` beside ``nvcc``;
+    NOPs left out)."""
+    import chip_smoke
+
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : _Z4regsILi32EEvPf",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */",
+        "                                                              /* 0x000fe20000000f00 */",
+        "        /*0010*/              @!P0 FSET.BF.LE.AND R2, R3, R4, PT ;",
+        "        /*0020*/                   FADD R5, R5, R2 ;",
+        "        /*0030*/                   NOP;",
+        "\t\tFunction : _Z5tiledPf",
+        "        /*10000*/                   EXIT ;",
+    ])
+    cuobjdump = tmp_path / "cuobjdump"
+    cuobjdump.write_text(f"#!{sys.executable}\nprint({sass!r})\n")
+    cuobjdump.chmod(0o755)
+    counts = chip_smoke.sass_instructions("lib.so", str(tmp_path / "nvcc"))
+    assert counts == {"_Z4regsILi32EEvPf": 3, "_Z5tiledPf": 1}
+    ptxas = {"_Z4regsILi32EEvPf": {"registers": 76}, "_Z5tiledPf": {"registers": 31}}
+    regs, other = chip_smoke.register_instances(ptxas, r"regsILi(\d+)E", counts)
+    assert regs == {32: {"registers": 76, "sass_instructions": 3}}
+    assert other == {"registers": 31, "sass_instructions": 1}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 #: compile without it, and ``scoring_kernels`` reads it from here.
 DEFINES: dict[str, dict[str, int]] = {
     "median_weights": {"TR_NETWORK_MAX_WINDOW": 64},
+    "median_weights_pairwise": {"TR_PAIRWISE_REGISTER_MAX_WINDOW": 64},
 }
 
 _lock = threading.Lock()

@@ -11,9 +11,11 @@ Three formulations, one hand-written CUDA kernel each, all launched through
   registers and sorts it with a bitonic network, so order statistic k is the sorted
   value at k, exactly what the stable rank picks; past it, each element's stable rank
   by W compare passes, O(W²). Its plain version keeps the JAX kernel's rank passes.
-- ``pairwise`` (``csrc/median_weights_pairwise.cu``): the same ranks, every element
-  of a window ranked in parallel against all others; explicit ``mode="pairwise"``
-  only, as in the JAX package.
+- ``pairwise`` (``csrc/median_weights_pairwise.cu``): the same ranks from all-pairs
+  compares. Up to ``PAIRWISE_REGISTER_MAX_WINDOW`` (64) a thread holds its window in
+  registers and ranks it with one compare per pair of slots; past it, every element
+  of a staged tile of windows is ranked in parallel against all others. Explicit
+  ``mode="pairwise"`` only, as in the JAX package.
 - ``radix`` (``csrc/median_weights_radix.cu``): the lower median by 5-bit digit
   rounds over a candidate list that shrinks (the first round reads all W keys, later
   ones only the survivors), the upper one from it in one pass; the long-window mode.
@@ -59,6 +61,12 @@ MAX_WINDOW = MAX_SHARED_BYTES // (4 * 32)
 #: take its O(W²) shared-memory path. Its source is compiled with this value
 #: (``_build.DEFINES``, ``kNetworkMaxWindow`` in ``csrc/median_weights.cu``).
 NETWORK_MAX_WINDOW = _build.DEFINES[KERNEL_NAME]["TR_NETWORK_MAX_WINDOW"]
+#: Largest window the pairwise kernel ranks in one thread's registers; longer windows
+#: take its tiled path. Its source is compiled with this value (``_build.DEFINES``,
+#: ``kRegisterMaxWindow`` in ``csrc/median_weights_pairwise.cu``).
+PAIRWISE_REGISTER_MAX_WINDOW = _build.DEFINES[KERNEL_NAMES["pairwise"]][
+    "TR_PAIRWISE_REGISTER_MAX_WINDOW"
+]
 #: The pairwise and radix kernels stage 32 windows per block (``csrc/window_tile.cuh``)
 #: in rows padded to 33 words, beside at most 384 B of static shared memory.
 TILE_WINDOWS = 32
@@ -72,16 +80,16 @@ MODE_MAX_WINDOW = {"loop": MAX_WINDOW, "pairwise": TILE_MAX_WINDOW, "radix": TIL
 #: Largest window ``loop`` is auto-selected for; past it ``radix`` runs. Set from the
 #: H100 sweep (``ops/kernel_sweep.py`` as run by ``chip_smoke.py`` phase ``sweep``, on
 #: an NVIDIA H100 80GB HBM3 at 700 W; its table is in PERF.md section 6 and in
-#: ``tests/test_torch_kernel_sweep.py``): its ``loop_max_window``. With the register
-#: network ``loop`` beats ``radix`` at every R up to W = 64 (at R = 4096: 0.025 to
-#: 0.110 ms at W = 32, 0.052 to 0.162 ms at W = 64), and its O(W²) path loses W = 128
-#: (1.13 to 0.25 ms).
+#: ``tests/test_torch_kernel_sweep.py``): its ``loop_max_window``, by device time.
+#: With the register network ``loop`` beats ``radix`` at every R up to W = 64 (at
+#: R = 4096: 0.021 to 0.105 ms at W = 32, 0.048 to 0.157 ms at W = 64), and its
+#: O(W²) path loses W = 128 (1.12 to 0.24 ms).
 DEFAULT_MAX_WINDOW = 64
 #: The port's own override of the cap; a TPU sweep's export never sets it.
 MAX_WINDOW_ENV = "TPU_RESILIENCY_CUDA_MAX_WINDOW"
 #: Auto-selection of ``radix`` past the cap (explicit ``mode="radix"`` always works).
 #: On, from the same sweep: ``radix`` beat the sort path at every swept window past
-#: the cap and every rank count (0.91 to 10.12 ms at 4096 x 64 x 512).
+#: the cap and every rank count (0.91 to 10.11 ms at 4096 x 64 x 512).
 DEFAULT_RADIX_AUTO = True
 RADIX_ENV = "TPU_RESILIENCY_CUDA_RADIX"
 
@@ -131,7 +139,9 @@ def kernel_supported(window: int, signals: int, mode: str | None = None) -> bool
 
 def network_size(window: int) -> int:
     """The loop kernel's register network at ``window`` (up to
-    :data:`NETWORK_MAX_WINDOW`) sorts the smallest power of two of slots ≥ W."""
+    :data:`NETWORK_MAX_WINDOW`) sorts the smallest power of two of slots ≥ W; the
+    pairwise kernel's register path (up to :data:`PAIRWISE_REGISTER_MAX_WINDOW`)
+    holds as many."""
     return 1 << max(window - 1, 0).bit_length()
 
 

@@ -38,20 +38,27 @@ def _valid_slots(counts: torch.Tensor, w: int) -> torch.Tensor:
     return pos < counts[..., None]
 
 
+def _take_or_nan(s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``s[..., idx]`` per row, NaN where ``idx`` lies past the last axis, as
+    ``jnp.take_along_axis`` fills an out-of-range index (``torch.gather`` raises)."""
+    w = s.shape[-1]
+    v = torch.gather(s, -1, idx.clamp(max=w - 1).long()[..., None])[..., 0]
+    return torch.where(idx < w, v, float("nan"))
+
+
 def masked_median(data: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """Median over the last axis, honoring per-row valid-sample counts.
 
     ``data``: f32 [..., W] windows; ``counts``: i32 [...] valid samples per window
     (0 gives +inf). Invalid slots sort to +inf; the median of ``n`` valid samples
-    is the mean of elements ``(n-1)//2`` and ``n//2`` of the sorted prefix.
+    is the mean of elements ``(n-1)//2`` and ``n//2`` of the sorted prefix. A count
+    of 2W or more puts an element past the window: NaN, as in the JAX package.
     """
     valid = _valid_slots(counts, data.shape[-1])
     padded = torch.where(valid, data, float("inf"))
     s = torch.sort(padded, dim=-1).values
-    lo_idx = ((counts - 1).clamp(min=0) // 2).long()
-    hi_idx = (counts // 2).long()
-    lo = torch.gather(s, -1, lo_idx[..., None])[..., 0]
-    hi = torch.gather(s, -1, hi_idx[..., None])[..., 0]
+    lo = _take_or_nan(s, (counts - 1).clamp(min=0) // 2)
+    hi = _take_or_nan(s, counts.clamp(min=0) // 2)
     med = 0.5 * (lo + hi)
     return torch.where(counts > 0, med, float("inf"))
 
