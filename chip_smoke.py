@@ -69,6 +69,31 @@ the card's name and power limit:
    and radix verdict it derives, beside the defaults the package carries.
 9. ``breakdown``: ``torch.profiler`` device time by kernel over a few reports at
    config 4 and at W = 512.
+10. ``detector_path``: the straggler-detection API on the card.
+   ``integrations.run_training`` drives 400 steps of config 4's workload: each step
+   pushes one [4096, 64] row into ``MeshTelemetry(4096, window 32, 64 signals)``
+   inside a ``record_function("push")`` region, every 100th step (i % 100 == 0,
+   all profiled) then scores a report inside ``record_function("report")``, and
+   the step ends with a synchronize (a train step's loss read). ``StragglerDetectionCallback(
+   profile_programs_every=50, profile_ops=True)`` with the Detector's default
+   window (128) and 64 signals times the steps, and its ``report_time_interval``
+   is 100 steps of the workload without the callback, so several reports fire.
+   Every Detector report must hold ``sec/train_step``, ``prog/push``,
+   ``prog/report`` and the ``loop`` kernel's ``op/`` signal; the ``op/`` samples
+   of the ``loop`` kernel must number its launches in profiled steps (the
+   per-mode counter); every ``prog/`` and ``op/`` sample must be positive and no
+   longer than its step; every config-4 report but the first (one row in the
+   ring) must flag the main path's ranks.
+   It prints, on CUDA events, ms per step with the callback and without it, the
+   median step by kind (plain, profiled, Detector report round) and the device
+   span of each region.
+11. ``group_path``: config 4's summaries (the sort path's medians and totals of the
+   ring) scored through a one-process NCCL group on the card:
+   ``MeshTelemetry(group=...)``, ``score_local_summary`` and ``report_from_summary``
+   over two rounds. The masks must equal, and the scores match within
+   ``GROUP_TOL``, the single-program ``score_summary`` on the same tensors. The
+   collectives run on CUDA tensors; several ranks are rehearsed on the CPU with
+   gloo (``tests/test_torch_group_scoring.py``).
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
@@ -101,6 +126,20 @@ LOOP_ADVERSARIAL_WINDOWS = (1, 7, 32, 33, 64, 65)
 PAIRWISE_WINDOWS = (1, 2, 7, 31, 32, 33, 63, 64, 65)  # edge and adversarial
 EDGE_RANKS = EDGE_SIGNALS = 64
 REPORT_INTERVAL = 100  # steps per report for the amortised per-step cost
+DETECTOR_STEPS = 400
+PROFILE_EVERY = 50  # the callback's profiled steps: i % 50 == 0
+# The kernels of csrc/median_weights.cu: the register network (W <= 64) and the
+# general path; ``loop`` launches one of them per report.
+LOOP_KERNEL_FUNCTIONS = ("median_weights_network_kernel", "median_weights_loop_kernel")
+# Score tolerances of the CPU tests of the group mode (tests/test_torch_scoring.py TOL).
+GROUP_TOL = {
+    "section_scores": dict(rtol=1e-6, atol=0.0),
+    "individual_section_scores": dict(rtol=1e-6, atol=0.0),
+    "perf": dict(rtol=1e-5, atol=0.0),
+    "ewma": dict(rtol=1e-5, atol=0.0),
+    "z": dict(rtol=1e-4, atol=1e-4),
+    "historical_min": dict(rtol=0.0, atol=0.0),
+}
 # The kernels' bounds. Bytes at the H100 SXM's published memory rate (NVIDIA data
 # sheet). Operations: every kernel's work is compares, minima and maxima, or 32-bit
 # integer adds and logic (radix keys), which issue at 64 results per clock per SM on
@@ -396,6 +435,243 @@ class Smoke:
         if not bool((err <= rtol * abs_sum).all()):
             raise AssertionError(f"{label} {mode}: weights off by up to {float(err.max())}")
         return float(err.max()), med_k
+
+
+def detector_path(smoke, rows, names, main_mask):
+    """Phase 10: ``run_training`` with ``StragglerDetectionCallback`` over config 4's
+    workload on the card. Returns the ``loop`` launches of the run."""
+    import torch
+    from torch.profiler import record_function
+
+    from tpu_resiliency_torch.integrations import (
+        Callback,
+        LoopContext,
+        StragglerDetectionCallback,
+        run_training,
+    )
+    from tpu_resiliency_torch.ops import scoring_kernels as sk
+    from tpu_resiliency_torch.telemetry import Detector, MeshTelemetry
+
+    class Recording(StragglerDetectionCallback):
+        """Keeps each profiler window's samples by step, and each report."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.windows, self.reports = {}, []
+
+        def _fold_profiler_window(self):
+            programs, ops = super()._fold_profiler_window()
+            self.windows[self._step_count - 1] = (programs, ops)
+            return programs, ops
+
+        def _handle_report(self, ctx, report):
+            super()._handle_report(ctx, report)
+            self.reports.append((ctx.step, report))
+
+    class StepEvents(Callback):
+        """A CUDA event per step at one hook: first in the list at
+        ``on_step_start``, last at ``on_step_end``."""
+
+        def __init__(self, hook):
+            self.events = []
+            setattr(self, hook, self._record)
+
+        def _record(self, ctx):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+
+    def workload(log=None, cb=None):
+        mt = MeshTelemetry(R, signal_names=names, window=W)
+        reports = []
+
+        def step(state, i):
+            t0 = time.perf_counter()
+            before = sk.fused_median_weights.launches_by_mode["loop"]
+            profiled = cb is not None and cb._program_profiler is not None and cb._program_profiler.active
+            with record_function("push"):
+                mt.push(state, rows[i % W])
+            if i % REPORT_INTERVAL == 0:
+                with record_function("report"):
+                    state, rep = mt.generate_report(state)
+                reports.append(rep)
+            torch.cuda.synchronize()  # the step's loss read
+            if log is not None:
+                log[i] = (profiled, sk.fused_median_weights.launches_by_mode["loop"] - before,
+                          time.perf_counter() - t0)
+            return state
+
+        return mt, step, reports
+
+    def timed_run(step, state, callbacks=()):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        ctx = run_training(step, state, DETECTOR_STEPS, callbacks=callbacks,
+                           ctx=LoopContext(rank=0, world_size=1))
+        b.record()
+        torch.cuda.synchronize()
+        if ctx.step != DETECTOR_STEPS:
+            raise AssertionError(f"the loop stopped at step {ctx.step}")
+        return a.elapsed_time(b) / DETECTOR_STEPS
+
+    log0 = {}
+    mt0, step0, _ = workload(log0)
+    timed_run(step0, mt0.init_state())  # warm-up
+    ms_without = timed_run(step0, mt0.init_state())
+    # 100 median steps of the workload: the Detector's tracker measures steps with
+    # the callback, which are longer, so its interval comes out below 100 steps.
+    report_time_interval = REPORT_INTERVAL * statistics.median(t for _, _, t in log0.values())
+
+    log = {}
+    cb = Recording(report_time_interval=report_time_interval,
+                   profile_programs_every=PROFILE_EVERY, profile_ops=True)
+    starts, ends = StepEvents("on_step_start"), StepEvents("on_step_end")
+    mt, step, c4_reports = workload(log, cb)
+    sk.reset_launches()
+    ms_with = timed_run(step, mt.init_state(), callbacks=[starts, cb, ends])
+    launches = dict(sk.fused_median_weights.launches_by_mode)
+    if Detector.initialized:
+        raise AssertionError("the Detector outlived the loop")
+
+    profiled_steps = sorted(cb.windows)
+    if profiled_steps != list(range(0, DETECTOR_STEPS, PROFILE_EVERY)):
+        raise AssertionError(f"profiler windows at steps {profiled_steps}")
+    if len(cb.reports) < 2:
+        raise AssertionError(f"{len(cb.reports)} Detector reports fired, want 2 or more")
+    loop_ops = {f"op/{k}" for k in LOOP_KERNEL_FUNCTIONS}
+    for at, rep in cb.reports:
+        names_ = set(rep.section_names)
+        missing = {"sec/train_step", "prog/push", "prog/report"} - names_
+        if missing or not loop_ops & names_:
+            raise AssertionError(f"the report at step {at} lacks {sorted(missing)} or the "
+                                 f"loop kernel's op/ signal: {sorted(names_)}")
+    loop_samples = sum(len(ops.get(k, ())) for _, ops in cb.windows.values()
+                       for k in LOOP_KERNEL_FUNCTIONS)
+    loop_in_profiled = sum(n for profiled, n, _ in log.values() if profiled)
+    if loop_samples != loop_in_profiled or loop_samples == 0:
+        raise AssertionError(f"{loop_samples} op/ samples of the loop kernel against "
+                             f"{loop_in_profiled} launches in profiled steps")
+    for i, (programs, ops) in cb.windows.items():
+        step_s = log[i][2]
+        for name, secs in (*programs.items(), *ops.items()):
+            if not all(0.0 < x <= step_s for x in secs):
+                raise AssertionError(f"step {i}: a sample of {name} lies outside "
+                                     f"(0, {step_s}] s: {secs}")
+    for k, rep in enumerate(c4_reports[1:], start=1):  # the first scores one row
+        if not np.array_equal(flagged(rep, R), main_mask):
+            raise AssertionError(f"config-4 report {k + 1} of the loop flags other ranks")
+
+    spans = [a.elapsed_time(b) for a, b in zip(starts.events, ends.events)]
+    det_steps = {at for at, _ in cb.reports}
+    c4_steps = set(range(0, DETECTOR_STEPS, REPORT_INTERVAL))
+    busy = set(cb.windows) | det_steps | c4_steps
+
+    def median_of(steps):
+        steps = sorted(steps)
+        return {"ms": statistics.median(spans[i] for i in steps), "steps": len(steps)} if steps \
+            else "not measured"
+
+    region_ms = {}
+    for programs, ops in cb.windows.values():
+        for name, secs in programs.items():
+            region_ms.setdefault(name, []).extend(x * 1e3 for x in secs)
+    loop_ms = [x * 1e3 for _, ops in cb.windows.values() for k in LOOP_KERNEL_FUNCTIONS
+               for x in ops.get(k, ())]
+    smoke.emit(
+        "detector_path", ranks=R, signals=S, window=W, steps=DETECTOR_STEPS,
+        profile_every=PROFILE_EVERY, detector_window=Detector.window,
+        detector_signals=Detector.max_signals,
+        report_time_interval_s=report_time_interval,
+        detector_reports=[at for at, _ in cb.reports],
+        report_signals=len(cb.reports[-1][1].section_names),
+        launches=launches, loop_op_samples=loop_samples, loop_launches_in_profiled_steps=loop_in_profiled,
+        ms_per_step_without_callback=ms_without, ms_per_step_with_callback=ms_with,
+        step_ms_median={
+            "plain": median_of(set(range(DETECTOR_STEPS)) - busy),
+            "profiled": median_of(set(cb.windows) - det_steps - c4_steps),
+            "detector_report_round": median_of(det_steps - set(cb.windows) - c4_steps),
+            "config4_report_profiled": median_of(c4_steps - det_steps),
+        },
+        device_region_ms_median={k: statistics.median(v) for k, v in region_ms.items()},
+        loop_kernel_device_ms_median=statistics.median(loop_ms),
+        op_samples_by_window={i: sum(map(len, ops.values())) for i, (_, ops) in
+                              sorted(cb.windows.items())},
+        config4_reports=len(c4_reports),
+    )
+    return launches["loop"]
+
+
+def group_path(smoke, view, counts, names):
+    """Phase 11: config 4's summaries through a one-process NCCL group on the card,
+    against the single-program scoring on the same tensors."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_resiliency_torch.telemetry import MeshTelemetry, scoring
+    from tpu_resiliency_torch.telemetry.reporting import build_report
+
+    diffs = {}
+
+    def close(label, name, got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        tol = GROUP_TOL[name]
+        finite = np.isfinite(want)
+        if not (np.array_equal(np.isfinite(got), finite)
+                and np.array_equal(got[~finite], want[~finite])):
+            raise AssertionError(f"{label}: {name} differs off the finite values")
+        err = np.abs(got - want)[finite]
+        if not (err <= tol["atol"] + tol["rtol"] * np.abs(want[finite])).all():
+            raise AssertionError(f"{label}: {name} off by up to {err.max()}")
+        diffs[f"{label}_{name}"] = float(err.max()) if err.size else 0.0
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        mt = MeshTelemetry(R, signal_names=names, window=W, group=group)
+        if mt.device.type != "cuda" or dist.get_backend(group) != "nccl":
+            raise AssertionError(f"the group path runs on {mt.device} over {dist.get_backend(group)}")
+        medians = scoring.masked_median(view, counts)
+        weights = scoring.masked_total(view, counts)
+        ewma = torch.ones(R, device=view.device)
+        hist = torch.full((R, S), float("inf"), device=view.device)
+        flagged_ranks = []
+        for k in range(2):
+            label = f"round{k + 1}"
+            med_k = medians * (1.0 + 0.25 * k)  # the second round runs slower everywhere
+            ref = scoring.score_summary(med_k, weights, counts, ewma, hist)
+            ewma, hist = ref.ewma, ref.historical_min
+            ref_host = scoring.scores_to_host(ref)
+            if k == 0:  # score_local_summary, its rows gathered, against every field
+                local = mt.score_local_summary(med_k, weights, counts)
+                got = scoring.scores_to_host(scoring.gather_scores(local, group))
+                if not np.array_equal(got.straggler, ref_host.straggler):
+                    raise AssertionError(f"{label}: the group mask differs")
+                for name in GROUP_TOL:
+                    close(label, name, getattr(got, name), getattr(ref_host, name))
+                report = mt.materialize(local)
+            else:  # report_from_summary, against the single-program report
+                report = mt.report_from_summary(med_k, weights, counts)
+            want = build_report(ref_host, rank=0, world_size=R, iteration=k + 1,
+                                section_names=names, rank_to_host=None)
+            if not np.array_equal(flagged(report, R), flagged(want, R)):
+                raise AssertionError(f"{label}: the group report flags other ranks")
+            for field, name in (("perf_scores", "perf"), ("z_scores", "z"),
+                                ("ewma_scores", "ewma")):
+                close(f"{label}_report", name, list(getattr(report, field).values()),
+                      list(getattr(want, field).values()))
+            close(f"{label}_report", "section_scores", report.global_section_scores,
+                  want.global_section_scores)
+            flagged_ranks.append(int(flagged(report, R).sum()))
+    finally:
+        dist.destroy_process_group()
+    smoke.emit("group_path", ranks=R, signals=S, backend="nccl", group_size=1,
+               rounds=2, flagged=flagged_ranks, max_abs_diff=diffs, tolerance=GROUP_TOL)
 
 
 def main() -> int:
@@ -832,6 +1108,13 @@ def main() -> int:
 
     breakdown("config4", mt_t, st, t4["score_ms_per_report"])
     breakdown("long_window", mt_lt, st_l, tl["score_ms_per_report"], reports=3)
+
+    # 10. detector path; 11. group path ------------------------------------------
+    del mt_t, st, mt_lt, st_l, long_ring
+    torch.cuda.empty_cache()
+    path_launches["loop"] += detector_path(smoke, rows, names, flagged(rep1, R))
+    group_path(smoke, rows.permute(1, 2, 0), torch.full((R, S), W, dtype=torch.int32, device=dev),
+               names)
 
     kernels = []
     for mode in sk.MODES:

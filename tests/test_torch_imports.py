@@ -15,7 +15,10 @@ import torch
 import tpu_resiliency_torch
 from tpu_resiliency_torch.platform import device as port_device
 from tpu_resiliency_torch.telemetry.convert import telemetry_state_from_numpy
+from tpu_resiliency_torch.telemetry.detector import Detector
+from tpu_resiliency_torch.telemetry.device_profiler import DeviceTimeProfiler
 from tpu_resiliency_torch.telemetry.reporting import ReportGenerator
+from tpu_resiliency_torch.telemetry.ring_buffer import DeviceRings
 from tpu_resiliency_torch.telemetry.sharded import MeshTelemetry
 
 PACKAGE_DIR = Path(tpu_resiliency_torch.__file__).parent
@@ -28,9 +31,29 @@ def _module_names():
     )
 
 
+#: Modules of the straggler-detection slice, each imported by the subprocess check.
+SLICE_MODULES = (
+    "tpu_resiliency_torch.exceptions",
+    "tpu_resiliency_torch.utils.logging",
+    "tpu_resiliency_torch.utils.events",
+    "tpu_resiliency_torch.watchdog.data",
+    "tpu_resiliency_torch.telemetry.statistics",
+    "tpu_resiliency_torch.telemetry.name_registry",
+    "tpu_resiliency_torch.telemetry.interval_tracker",
+    "tpu_resiliency_torch.telemetry.ring_buffer",
+    "tpu_resiliency_torch.telemetry.detector",
+    "tpu_resiliency_torch.telemetry.device_profiler",
+    "tpu_resiliency_torch.telemetry.policy",
+    "tpu_resiliency_torch.integrations",
+    "tpu_resiliency_torch.integrations.loop",
+    "tpu_resiliency_torch.integrations.straggler_callback",
+)
+
+
 def test_importing_every_module_loads_no_jax():
     names = ["tpu_resiliency_torch", *_module_names()]
     assert "tpu_resiliency_torch.ops.scoring_kernels" in names
+    assert set(SLICE_MODULES) <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -48,6 +71,9 @@ def test_importing_every_module_loads_no_jax():
 
 def test_no_source_file_imports_jax_or_the_jax_package():
     """Also covers imports inside functions, which the subprocess check never runs."""
+    files = {str(p.relative_to(REPO_ROOT).with_suffix("")).replace("/", ".")
+             for p in PACKAGE_DIR.rglob("*.py")}
+    assert {m if m in files else m + ".__init__" for m in SLICE_MODULES} <= files
     for path in PACKAGE_DIR.rglob("*.py"):
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -63,6 +89,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 
 
 ENTRY_POINTS = {
+    "DeviceRings": lambda **kw: DeviceRings.create(2, 4, **kw),
+    "DeviceTimeProfiler": lambda **kw: DeviceTimeProfiler(**kw),
     "MeshTelemetry": lambda **kw: MeshTelemetry(8, **kw),
     "ReportGenerator": lambda **kw: ReportGenerator(8, 2, **kw),
     "telemetry_state_from_numpy": lambda **kw: telemetry_state_from_numpy(
@@ -88,6 +116,44 @@ def test_entry_points_default_to_the_card(name):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert _device_of(make(device="cpu")).type == "cpu"
+
+
+def test_detector_defaults_to_the_card():
+    try:
+        if torch.cuda.is_available():
+            Detector.initialize()
+            assert Detector.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                Detector.initialize()
+            assert not Detector.initialized
+        Detector.shutdown()
+        Detector.initialize(device="cpu")
+        assert Detector.device.type == "cpu"
+    finally:
+        Detector.shutdown()
+
+
+def test_mesh_telemetry_over_a_group_defaults_to_the_card():
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                MeshTelemetry(8, group=group)
+        mt = MeshTelemetry(8, group=group, device="cpu")
+        assert mt.device.type == "cpu" and mt.local_ranks == 8
+        with pytest.raises(TypeError, match="process group"):
+            MeshTelemetry(8, group=object(), device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_platform_kind_names_where_the_default_runs():

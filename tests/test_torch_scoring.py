@@ -187,8 +187,10 @@ def test_scores_to_host_is_one_copy(monkeypatch):
 
 
 def test_sharded_mode_is_not_ported_yet():
+    """The group mode is ported (``tests/test_torch_group_scoring.py`` holds it against
+    the reference); what stays is that ``group`` must be a process group."""
     data, counts = telemetry(seed=9, r=8)
-    with pytest.raises(NotImplementedError, match="process group"):
+    with pytest.raises(TypeError, match="process group"):
         scoring.score_round(
             torch.from_numpy(data), torch.from_numpy(counts), torch.ones(8),
             torch.full((8, 8), float("inf")), group=object(),

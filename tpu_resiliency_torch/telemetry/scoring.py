@@ -12,7 +12,19 @@ Port of ``tpu_resiliency/telemetry/scoring.py`` (single-program mode). Over a
 - the **straggler mask**: perf below threshold or robust-z below -z_threshold.
 
 Every function takes and returns tensors on one device and runs eagerly there.
-Sharded mode, where the rank axis spans a process group, is not ported yet.
+
+Two modes share the pipeline, as in the reference:
+
+- **single-program** (``group=None``): the ``[R, ...]`` matrix is on one device and
+  the cross-rank reductions are plain axis-0 ops;
+- **process-group** (``group=`` a ``torch.distributed`` process group): each process
+  holds its own block of rows, of the same size on every process, and the two
+  cross-rank reductions become collectives: the per-signal reference median is an
+  ``all_reduce(MIN)`` (the reference's ``lax.pmin``), and ``robust_z`` all-gathers
+  the per-rank perf vector (the reference's ``lax.all_gather``). The tensors must be
+  on a device the group's backend serves (NCCL: the card; gloo: the CPU). This mode
+  answers the JAX package's ``score_round_jit``, ``make_sharded_scorer`` and
+  ``score_round_sharded``, which compile the pipeline over a mesh.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 EPS = 1e-12
 MAD_SCALE = 1.4826  # makes MAD a consistent sigma estimator under normality
@@ -69,9 +82,33 @@ def masked_total(data: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, data, 0.0).sum(dim=-1)
 
 
-def relative_scores(medians: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """[R, S] relative scores vs the fastest rank per signal."""
+# ``all_gather_single`` is the newer name of ``all_gather_into_tensor``.
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def check_group(group) -> None:
+    """Raise unless ``group`` is ``None`` or a ``torch.distributed`` process group."""
+    if group is not None and not isinstance(group, dist.ProcessGroup):
+        raise TypeError(f"group must be a torch.distributed process group, got {type(group)}")
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The rows of every process of ``group``, in group-rank order: ``[world * n,
+    ...]`` from this process's ``x [n, ...]`` (the same ``n`` on every process)."""
+    out = torch.empty((dist.get_world_size(group) * x.shape[0], *x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _all_gather_single(out, x.contiguous(), group=group)
+    return out
+
+
+def relative_scores(
+    medians: torch.Tensor, valid: torch.Tensor, group=None
+) -> torch.Tensor:
+    """[R, S] relative scores vs the fastest rank per signal; over ``group`` the
+    reference median is the minimum across every process's rows."""
     ref = torch.where(valid, medians, float("inf")).amin(dim=0, keepdim=True)
+    if group is not None:
+        dist.all_reduce(ref, op=dist.ReduceOp.MIN, group=group)
     scores = ref / medians.clamp(min=EPS)
     # Signals nobody measured have ref=inf; signals this rank didn't measure score 1.
     scores = torch.where(torch.isfinite(ref), scores, 1.0)
@@ -104,10 +141,12 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (s[(n - 1) // 2] + s[n // 2])
 
 
-def robust_z(x: torch.Tensor) -> torch.Tensor:
-    """Median/MAD z-score along the rank axis."""
-    med = _median(x)
-    mad = _median((x - med).abs())
+def robust_z(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Median/MAD z-score along the rank axis; over ``group`` the median and MAD
+    are taken over every process's ranks (an all-gather of the perf vector)."""
+    full = x if group is None else all_gather_rows(x, group)
+    med = _median(full)
+    mad = _median((full - med).abs())
     return (x - med) / (MAD_SCALE * mad).clamp(min=MAD_FLOOR)
 
 
@@ -143,22 +182,20 @@ def score_round(
     ``prev_ewma``: f32 [R] (start with ones); ``historical_min``: f32 [R, S] (start
     with +inf). ``medians_and_weights`` short-circuits the window reduction with
     precomputed ``(medians [R,S], weights [R,S])`` — the hook the kernel path uses.
-    ``group`` (a process group for the sharded mode) is not supported yet.
+    ``group`` scores over a process group: R is then this process's block of rows,
+    and every output holds this process's rows.
     """
-    if group is not None:
-        raise NotImplementedError(
-            "sharded scoring over a process group is not ported yet; see ROADMAP.md"
-        )
+    check_group(group)
     if medians_and_weights is None:
         medians = masked_median(data, counts)
         weights = masked_total(data, counts)
     else:
         medians, weights = medians_and_weights
     valid = counts > 0
-    section = relative_scores(medians, valid)
+    section = relative_scores(medians, valid, group)
     indiv, new_min = individual_scores(medians, valid, historical_min)
     perf = perf_scores(section, weights, valid)
-    z = robust_z(perf)
+    z = robust_z(perf, group)
     ewma = alpha * perf + (1.0 - alpha) * prev_ewma
     straggler = (perf < threshold) | (z < -z_threshold)
     return TelemetryScores(
@@ -182,9 +219,10 @@ def score_summary(
     threshold: float = DEFAULT_THRESHOLD,
     z_threshold: float = DEFAULT_Z_THRESHOLD,
     alpha: float = DEFAULT_EWMA_ALPHA,
+    group=None,
 ) -> TelemetryScores:
     """Score precomputed per-(rank, signal) medians and weights (window reduction
-    already done)."""
+    already done); ``group`` as in :func:`score_round`."""
     return score_round(
         None,
         counts,
@@ -194,6 +232,7 @@ def score_summary(
         z_threshold=z_threshold,
         alpha=alpha,
         medians_and_weights=(medians, weights),
+        group=group,
     )
 
 
@@ -215,11 +254,30 @@ def scores_to_host(res: TelemetryScores) -> TelemetryScores:
     return TelemetryScores(**out)
 
 
+def gather_scores(res: TelemetryScores, group) -> TelemetryScores:
+    """Every process's rows of ``res`` (a round scored over ``group``), in group-rank
+    order, on this process's device: ONE all-gather of every field's rows packed
+    into one f32 block, so each process can build the full report."""
+    tensors = [getattr(res, name) for name in _FIELDS]
+    local = tensors[0].shape[0]
+    widths = [t.numel() // max(local, 1) for t in tensors]
+    packed = torch.cat([t.reshape(local, w).to(torch.float32) for t, w in zip(tensors, widths)], 1)
+    full = all_gather_rows(packed, group)
+    out = {}
+    for name, t, cols in zip(_FIELDS, tensors, full.split(widths, dim=1)):
+        arr = cols.reshape(full.shape[0], *t.shape[1:])
+        out[name] = arr != 0 if t.dtype == torch.bool else arr.to(t.dtype)
+    return TelemetryScores(**out)
+
+
 __all__ = [
     "DEFAULT_EWMA_ALPHA",
     "DEFAULT_THRESHOLD",
     "DEFAULT_Z_THRESHOLD",
     "TelemetryScores",
+    "all_gather_rows",
+    "check_group",
+    "gather_scores",
     "individual_scores",
     "masked_median",
     "masked_total",

@@ -1,6 +1,6 @@
 """Device-resident telemetry: the straggler ingestion and scoring hot loop.
 
-Port of ``tpu_resiliency/telemetry/sharded.py`` on one device. Telemetry lives on
+Port of ``tpu_resiliency/telemetry/sharded.py``. Telemetry lives on
 the card as a window-major ``[W, R, S]`` ring. Every step, :meth:`MeshTelemetry.push`
 writes one ``[R, S]`` row in place at a cursor that stays on the device, so a step
 never waits for the host. Every report, :meth:`MeshTelemetry.score` reads the ring
@@ -19,8 +19,14 @@ Usage in a train loop::
         if step % interval == 0:
             state, report = mt.generate_report(state)
 
-Sharding the rank axis over a process group (``mesh``/``axis`` in the JAX package)
-is not ported yet.
+Over a process group (``group=``, the JAX package's ``mesh``/``axis``), each process
+holds its own block of ``n_ranks / world`` rows on its device: it pushes its own rows,
+the scoring round's cross-rank reductions are collectives (``scoring.score_round``),
+and :meth:`MeshTelemetry.materialize` all-gathers the score rows before its one
+device-to-host copy, so every process builds the full report. The summary path
+(:meth:`MeshTelemetry.score_local_summary`, :meth:`MeshTelemetry.report_from_summary`)
+scores per-rank ``[median, total, count]`` rows fed process-locally — the ``Detector``
+report with no per-rank summary in the store.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import dataclasses
 from typing import Any, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from tpu_resiliency_torch.ops.scoring_kernels import (
     auto_mode,
@@ -84,11 +91,15 @@ class TelemetryState:
 
 
 class MeshTelemetry:
-    """Owner of the telemetry state's push and score programs on one device.
+    """Owner of the telemetry state's push and score programs.
 
     ``device=None`` means the CUDA card (raises when there is none). The window
     reduction is chosen once here by :func:`select_kernel_mode`, exposed as
     ``kernel_mode`` (``None`` for the sort path) and ``use_kernel``, and never changes.
+    ``group``: a ``torch.distributed`` process group over which the ``n_ranks`` rows
+    are split, ``local_ranks = n_ranks / world`` rows per process in group-rank
+    order (``n_ranks`` must divide over the group's size); ``None`` keeps every row
+    on this device.
     """
 
     def __init__(
@@ -102,10 +113,19 @@ class MeshTelemetry:
         ewma_alpha: float = scoring.DEFAULT_EWMA_ALPHA,
         rank_to_host: Optional[dict[int, str]] = None,
         use_kernel: Optional[bool] = None,
+        group=None,
         device=None,
     ):
         self.device = resolve_device(device)
+        scoring.check_group(group)
+        self.group = group
         self.n_ranks = int(n_ranks)
+        world = 1 if group is None else dist.get_world_size(group)
+        if self.n_ranks % world:
+            raise ValueError(
+                f"n_ranks={self.n_ranks} must divide over the group's size {world}"
+            )
+        self.local_ranks = self.n_ranks // world
         self.signal_names = tuple(signal_names)
         self.n_signals = len(self.signal_names)
         self.window = int(window)
@@ -118,11 +138,13 @@ class MeshTelemetry:
             self.window, self.n_signals, use_kernel, self.device
         )
         self.use_kernel = self.kernel_mode is not None
+        self._summary_state = None  # (ewma [L], hist_min [L, S]) of the summary path
 
     # -- state lifecycle ---------------------------------------------------
 
     def init_state(self) -> TelemetryState:
-        r, s, w = self.n_ranks, self.n_signals, self.window
+        """This process's state: its ``local_ranks`` rows."""
+        r, s, w = self.local_ranks, self.n_signals, self.window
         dev = self.device
         return TelemetryState(
             data=torch.zeros((w, r, s), dtype=torch.float32, device=dev),
@@ -135,7 +157,8 @@ class MeshTelemetry:
     # -- ingestion ---------------------------------------------------------
 
     def push(self, state: TelemetryState, values) -> TelemetryState:
-        """Append one ``[R, S]`` sample row (one measurement per rank per signal).
+        """Append one ``[L, S]`` sample row (one measurement per local rank per
+        signal; L = R without a group).
 
         Updates ``state`` in place and returns it (the JAX version donates the carry
         and returns a new one): the row goes into the ring at ``cursor % W`` with
@@ -172,6 +195,7 @@ class MeshTelemetry:
             z_threshold=self.z_threshold,
             alpha=self.ewma_alpha,
             medians_and_weights=mw,
+            group=self.group,
         )
         new_state = TelemetryState(
             data=state.data,
@@ -181,6 +205,50 @@ class MeshTelemetry:
             hist_min=scores.historical_min,
         )
         return new_state, scores
+
+    # -- summary path ------------------------------------------------------
+
+    def score_local_summary(self, medians, weights, counts) -> scoring.TelemetryScores:
+        """Score per-rank summaries fed process-locally: this process's ``[L, S]``
+        median / weight / count rows (numpy or tensors). Over a group, the
+        cross-rank reductions are the round's collectives, and no summary passes
+        through a store. The EWMA and historical minimum of this path are carried
+        here, on the local rows. Returns the local rows' scores, on the device."""
+        dev, shape = self.device, (self.local_ranks, self.n_signals)
+
+        def put(x, dtype):
+            t = torch.as_tensor(x, dtype=dtype, device=dev)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"expected local summary rows {shape}, got {tuple(t.shape)}")
+            return t
+
+        med, wgt, cnt = put(medians, torch.float32), put(weights, torch.float32), put(
+            counts, torch.int32)
+        if self._summary_state is None:
+            self._summary_state = (
+                torch.ones((self.local_ranks,), dtype=torch.float32, device=dev),
+                torch.full(shape, float("inf"), dtype=torch.float32, device=dev),
+            )
+        ewma, hist_min = self._summary_state
+        scores = scoring.score_summary(
+            med, wgt, cnt, ewma, hist_min, threshold=self.threshold,
+            z_threshold=self.z_threshold, alpha=self.ewma_alpha, group=self.group,
+        )
+        self._summary_state = (scores.ewma, scores.historical_min)
+        self.iteration += 1
+        return scores
+
+    def report_from_summary(
+        self, medians, weights, counts, *, rank: int = 0,
+        signal_names: Optional[Sequence[str]] = None,
+    ) -> Report:
+        """One summary round: score the process-local rows, build the Report.
+
+        ``signal_names`` overrides the construction-time names (the Detector passes
+        the agreed column list, which can be shorter than this object's column
+        capacity — the tail columns carry counts 0 and score 1.0)."""
+        scores = self.score_local_summary(medians, weights, counts)
+        return self.materialize(scores, rank=rank, signal_names=signal_names)
 
     # -- report materialization -------------------------------------------
 
@@ -197,6 +265,11 @@ class MeshTelemetry:
         rank: int = 0,
         signal_names: Optional[Sequence[str]] = None,
     ) -> Report:
+        """The :class:`Report` of a round, seen by ``rank``: over a group, the score
+        rows of every process are all-gathered first (one collective), then copied
+        to the host once."""
+        if self.group is not None:
+            scores = scoring.gather_scores(scores, self.group)
         return build_report(
             scoring.scores_to_host(scores),
             rank=rank,

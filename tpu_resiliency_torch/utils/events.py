@@ -1,0 +1,323 @@
+"""Structured event stream: machine-consumable records of the resiliency story.
+
+A copy of ``tpu_resiliency/utils/events.py`` with the same record schema and the same
+variable, ``TPU_RESILIENCY_EVENTS_FILE``: a process of either package appends its
+events, one JSON line each, to the one stream the launcher names, and every
+consumer of the JAX package's stream (``tools/events_summary.py``,
+``tools/trace_export.py``) reads the port's records as its own.
+
+Only the JSONL wiring is ported. The bridges the reference also wires from the
+environment, ``TPU_RESILIENCY_METRICS_FILE`` and ``TPU_RESILIENCY_METRICS_PUSH``
+(``utils/metrics.py``) and ``TPU_RESILIENCY_FLIGHT_DIR``
+(``utils/flight_recorder.py``), belong to modules the port does not hold yet: a
+process that sets one is warned once, and the variable has no effect.
+
+Design:
+
+- :class:`Event`: ``(ts, source, kind, payload)`` plus process identity (pid, rank
+  when known) and, when tracing is active, ``trace_id``/``span_id`` causal context
+  — everything JSON-serializable.
+- Pluggable sinks registered per process (``add_sink``); the default wiring is
+  environment-driven: ``TPU_RESILIENCY_EVENTS_FILE=<path>`` attaches a JSONL sink.
+  JSONL lines are written in one ``write()`` call — atomic under POSIX append
+  semantics for lines < PIPE_BUF, so all processes of a node can share one file.
+- ``record(source, kind, **payload)``: fire-and-forget; a sink failure never
+  breaks the workload (events are observability, not control flow).
+- ``@prof``: times a callable and records a ``timing`` event with success/failure,
+  the reference's ``@prof`` metric decorator.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import threading
+import time
+from typing import Any, Callable, Optional
+
+from tpu_resiliency_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+EVENTS_FILE_ENV = "TPU_RESILIENCY_EVENTS_FILE"
+#: The reference's metrics-snapshot, flight-recorder and metrics-push variables:
+#: their sinks are not ported yet (``UNPORTED_ENVS`` below).
+METRICS_FILE_ENV = "TPU_RESILIENCY_METRICS_FILE"
+FLIGHT_DIR_ENV = "TPU_RESILIENCY_FLIGHT_DIR"
+METRICS_PUSH_ENV = "TPU_RESILIENCY_METRICS_PUSH"
+#: Set to a job identity (the launcher exports its --rdzv-id when --fleet-dir
+#: is on) to stamp ``job`` into every event's envelope. Fleet-scope consumers
+#: (``tools/fleetd.py``, ``tpu-metrics-dump --job``, ``tpu-events-summary
+#: --job``) use it to slice a stream several jobs share back to one job.
+JOB_ENV = "TPU_RESILIENCY_JOB"
+
+#: Envelope keys every JSONL record carries; payload keys that collide are
+#: renamed ``p_<key>`` by ``to_json``. Consumers (events_summary, trace_export)
+#: use this to split envelope from payload — one schema, one place.
+#: ``trace_id``/``span_id`` are envelope members too (omitted when tracing is
+#: inactive) so a payload key of the same name can never forge causal context;
+#: same for ``job`` (fleet federation's job identity, from $TPU_RESILIENCY_JOB).
+RESERVED_KEYS = ("ts", "source", "kind", "pid", "rank", "trace_id", "span_id",
+                 "job")
+
+
+@dataclasses.dataclass
+class Event:
+    ts: float
+    source: str
+    kind: str
+    payload: dict
+    pid: int = dataclasses.field(default_factory=os.getpid)
+    rank: Optional[int] = None
+    #: causal context (``utils/tracing.py``): the run's trace id and the span
+    #: active when this event was recorded — None outside any trace
+    trace_id: Optional[str] = None
+    span_id: Optional[str] = None
+    #: fleet job identity ($TPU_RESILIENCY_JOB) — None outside fleet scope
+    job: Optional[str] = None
+
+    def to_record(self) -> dict:
+        """The flat dict shape a parsed JSONL line has (envelope + payload,
+        colliding payload keys renamed ``p_<key>``) — what every stream
+        consumer (``observe_record``, the ledgers, ``critpath``) eats, minus
+        the JSON round trip. In-process sinks use this to feed the same code
+        paths the offline tools run."""
+        env = {
+            "ts": self.ts,
+            "source": self.source,
+            "kind": self.kind,
+            "pid": self.pid,
+            "rank": self.rank,
+        }
+        # Lean lines: untraced processes pay zero bytes for the trace fields.
+        if self.trace_id is not None:
+            env["trace_id"] = self.trace_id
+        if self.span_id is not None:
+            env["span_id"] = self.span_id
+        if self.job is not None:
+            env["job"] = self.job
+        return {
+            **env,
+            **{f"p_{k}" if k in RESERVED_KEYS else k: v
+               for k, v in self.payload.items()},
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_record(), default=repr)
+
+
+class JsonlSink:
+    """Appends one JSON line per event. Safe to share across processes: each event
+    is a single ``write()`` of one line."""
+
+    def __init__(self, path: str):
+        self.path = path
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        self._lock = threading.Lock()
+        self._f = open(path, "a", buffering=1)
+
+    def __call__(self, event: Event) -> None:
+        with self._lock:
+            self._f.write(event.to_json() + "\n")
+
+    def close(self) -> None:
+        try:
+            self._f.close()
+        except Exception:
+            pass
+
+
+class LoggingSink:
+    """Mirrors events into the standard log at DEBUG (for interleaved debugging)."""
+
+    def __call__(self, event: Event) -> None:
+        log.debug(f"[event] {event.to_json()}")
+
+
+_sinks: list[Callable[[Event], None]] = []
+_sinks_lock = threading.Lock()
+_env_wired_for: Optional[str] = None
+
+#: ``() -> (trace_id, span_id)`` supplier consulted by ``record``. The default
+#: reads the tracing env vars directly, so a process stamps the context a
+#: launcher exported onto its events; a tracer may install its own provider
+#: (``set_context_provider``). (A hook, not an import: events must stay the
+#: dependency root.)
+TRACE_ID_ENV = "TPU_RESILIENCY_TRACE_ID"
+PARENT_SPAN_ENV = "TPU_RESILIENCY_PARENT_SPAN"
+
+
+def _env_trace_context() -> tuple[Optional[str], Optional[str]]:
+    return (
+        os.environ.get(TRACE_ID_ENV) or None,
+        os.environ.get(PARENT_SPAN_ENV) or None,
+    )
+
+
+_context_provider: Callable[[], tuple[Optional[str], Optional[str]]] = (
+    _env_trace_context
+)
+
+
+def set_context_provider(
+    fn: Callable[[], tuple[Optional[str], Optional[str]]]
+) -> None:
+    """Install the ``(trace_id, span_id)`` supplier stamped onto every event."""
+    global _context_provider
+    _context_provider = fn
+
+
+def add_sink(sink: Callable[[Event], None], *, front: bool = False) -> None:
+    """Register a sink. ``front=True`` puts it FIRST in dispatch order —
+    reserved for crash-surviving sinks (the flight recorder): when a process
+    dies mid-``record()`` (e.g. a SIGKILL racing a hang-forensics stack
+    dump), the sink that persists the event must be the one that already
+    ran."""
+    with _sinks_lock:
+        if front:
+            _sinks.insert(0, sink)
+        else:
+            _sinks.append(sink)
+
+
+def remove_sink(sink: Callable[[Event], None]) -> None:
+    with _sinks_lock:
+        try:
+            _sinks.remove(sink)
+        except ValueError:
+            pass
+
+
+def clear_sinks() -> None:
+    global _env_wired_for
+    with _sinks_lock:
+        _sinks.clear()
+    _env_wired_for = None
+
+
+#: Variables of the reference's event wiring whose modules the port does not hold
+#: yet; each is warned about once per process.
+UNPORTED_ENVS = (METRICS_FILE_ENV, METRICS_PUSH_ENV, FLIGHT_DIR_ENV)
+_warned_unported: set[str] = set()
+
+
+def _wire_env_sink() -> None:
+    """Attach (once per path) the JSONL sink named by $TPU_RESILIENCY_EVENTS_FILE.
+    Re-checked on every record so a launcher exporting the variable after import
+    still takes effect, and forked/spawned children wire themselves lazily."""
+    global _env_wired_for
+    path = os.environ.get(EVENTS_FILE_ENV)
+    if path and path != _env_wired_for:
+        with _sinks_lock:
+            if _env_wired_for != path:
+                try:
+                    _sinks.append(JsonlSink(path))
+                    _env_wired_for = path
+                except OSError as e:
+                    log.warning(f"cannot open events file {path!r}: {e}")
+                    _env_wired_for = path  # don't retry every event
+    for env in UNPORTED_ENVS:
+        if env not in _warned_unported and os.environ.get(env):
+            _warned_unported.add(env)
+            log.warning(f"${env} is set, but its sink is not ported to tpu_resiliency_torch yet")
+
+
+def record(source: str, kind: str, **payload: Any) -> None:
+    """Record one event; never raises. ``rank`` is read from $RANK when present."""
+    _wire_env_sink()
+    with _sinks_lock:
+        sinks = list(_sinks)
+    if not sinks:
+        return
+    rank_s = os.environ.get("RANK")
+    try:
+        trace_id, span_id = _context_provider()
+    except Exception:
+        trace_id = span_id = None  # context is decoration, never control flow
+    ev = Event(
+        ts=time.time(),
+        source=source,
+        kind=kind,
+        payload=payload,
+        rank=int(rank_s) if rank_s and rank_s.isdigit() else None,
+        trace_id=trace_id,
+        span_id=span_id,
+        job=os.environ.get(JOB_ENV) or None,
+    )
+    for sink in sinks:
+        try:
+            sink(ev)
+        except Exception:
+            log.debug("event sink failed", exc_info=True)
+
+
+def prof(source: str, name: Optional[str] = None):
+    """Decorator: time the call, record a ``timing`` event with success/failure
+    (reference ``metrics/api.py`` ``@prof``)."""
+
+    def deco(fn: Callable):
+        label = name or getattr(fn, "__name__", "call")
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            except BaseException as e:
+                record(
+                    source, "timing", name=label,
+                    duration_s=time.perf_counter() - t0, ok=False, error=repr(e),
+                )
+                raise
+            record(
+                source, "timing", name=label,
+                duration_s=time.perf_counter() - t0, ok=True,
+            )
+            return out
+
+        wrapped.__name__ = getattr(fn, "__name__", label)
+        wrapped.__wrapped__ = fn
+        return wrapped
+
+    return deco
+
+
+def read_events(
+    path: str,
+    *,
+    since: Optional[float] = None,
+    until: Optional[float] = None,
+) -> list[dict]:
+    """Parse a JSONL event file (tolerates torn trailing lines).
+
+    ``since``/``until`` stream-filter records by their ``ts`` while reading,
+    so callers slicing a window out of a long-lived shared file (the incident
+    engine closes incidents against a stream that can span days) never
+    materialize its full history. When either bound is set, records without a
+    numeric ``ts`` are dropped — they cannot be placed in the window."""
+    out = []
+    bounded = since is not None or until is not None
+    try:
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except json.JSONDecodeError:
+                    continue
+                if bounded:
+                    ts = rec.get("ts")
+                    if not isinstance(ts, (int, float)):
+                        continue
+                    if since is not None and ts < since:
+                        continue
+                    if until is not None and ts > until:
+                        continue
+                out.append(rec)
+    except OSError:
+        pass
+    return out
