@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's straggler-telemetry paths on one CUDA card.
+"""Drive the PyTorch port's straggler-telemetry and in-process restart paths on one
+CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA card
 and the CUDA toolkit (``nvcc``), builds the port's three window-reduction kernels
-(``loop``, ``pairwise``, ``radix``) from the checkout's sources, all ``nvcc`` runs
-started together, and runs these phases, each printing one JSON line that carries
-the card's name and power limit:
+(``loop``, ``pairwise``, ``radix``) and its fault kernels (``csrc/faults.cu``) from the
+checkout's sources, all ``nvcc`` runs started together, and runs these phases, each
+printing one JSON line that carries the card's name and power limit:
 
 1. ``device``: the card, its count, and ``nvidia-smi``'s name and power limit.
 2. ``build``: each kernel's build seconds and ptxas register / shared-memory / spill
@@ -68,7 +69,9 @@ the card's name and power limit:
    R in {256, 1024, 4096} (S = 64): each kernel and the sort path, and the loop cap
    and radix verdict it derives, beside the defaults the package carries.
 9. ``breakdown``: ``torch.profiler`` device time by kernel over a few reports at
-   config 4 and at W = 512.
+   config 4 (5, ``loop``) and at W = 512 (3, ``radix``). Each session opens as a
+   ``DeviceTimeProfiler`` window does (a synchronize, then its ``SETTLE_S`` pause),
+   and the mode's kernel records must number its launches and the reports run.
 10. ``detector_path``: the straggler-detection API on the card.
    ``integrations.run_training`` drives 400 steps of config 4's workload: each step
    pushes one [4096, 64] row into ``MeshTelemetry(4096, window 32, 64 signals)``
@@ -94,6 +97,41 @@ the card's name and power limit:
    ``GROUP_TOL``, the single-program ``score_summary`` on the same tensors. The
    collectives run on CUDA tensors; several ranks are rehearsed on the CPU with
    gloo (``tests/test_torch_group_scoring.py``).
+12. ``restart_path``: in-process restart on the card, in four parts.
+   (a) ``inprocess.Wrapper`` (``AbortTorchDistributed``, ``CudaHealthCheck``) around
+   config 4's detector workload: 200 steps of ``run_training`` per iteration with the
+   straggler callback (a profiler window every 50 steps), one push per step and a
+   ``loop`` report every 100, in a one-process NCCL group that
+   ``platform.distributed.initialize`` builds anew each iteration on a new port.
+   Iteration 0 raises ``InjectedFault`` in step 150, a profiled one; iteration 1
+   completes. Iterations must be [0, 1]; iteration 1's group new, NCCL, its
+   ``all_reduce`` right; the ``loop`` launches rise in both; iteration 1's last report
+   flags the main path's ranks; iteration 1's four profiler windows open; and
+   ``torch.cuda.memory_allocated()`` at its first step lie within 1 MiB of iteration
+   0's. Printed: the wall time from the raise to iteration 1's first step, split into
+   abort, health check, re-init and the rest; it must be shorter than (c)'s fresh
+   interpreter's time to the card.
+   (b) ``DEVICE_HANG`` on two ranks of the one card, fresh interpreters, no group
+   between them: rank 1 launches the spin kernel in iteration 0 and its monitor
+   process must kill it (soft 1.5 s, hard 4 s) between hard - heartbeat interval and
+   hard + 1 s after its last ping; rank 0 must end at iteration 1, world 1, having
+   launched small kernels while its peer spun. Printed: last ping to kill.
+   Then three fresh interpreters together: (c) a fresh process must launch and
+   synchronize (the spinning context died with its process); its time from launch to
+   that first synchronize is printed, the least a process restart pays. Beside it,
+   ``DEVICE_ERROR`` on one rank: the trap kernel's sticky error must turn the
+   liveness probe ``False`` and ``CudaHealthCheck`` into ``HealthCheckError``, and the
+   Wrapper must exclude the rank with attempts [0]. And (d) one rank under the
+   Wrapper (its default timeouts) whose ``all_reduce`` in a one-process NCCL group
+   (2 s timeout) is queued behind 6 s of ``torch.cuda._sleep``: NCCL's watchdog
+   times it out, the step raises on seeing it unfinished, and the rank must live
+   through the abort and finish iteration 1 in a new NCCL group within the
+   Wrapper's barrier timeout (120 s). Printed: that restart's wall time, split.
+   The fault kernels' build seconds and ptxas lines are on this line; they are not
+   TPU kernels and have no row on the ``kernels`` line. The processes the run
+   started must be gone 30 s after the phase (what is left is killed and counted):
+   ``main`` stamps the run in the environment (``RUN_ENV``) and starts over in its
+   own place, so every process it starts holds the stamp, and only those are reaped.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
@@ -128,9 +166,13 @@ EDGE_RANKS = EDGE_SIGNALS = 64
 REPORT_INTERVAL = 100  # steps per report for the amortised per-step cost
 DETECTOR_STEPS = 400
 PROFILE_EVERY = 50  # the callback's profiled steps: i % 50 == 0
+RESTART_STEPS = 200  # steps per iteration of restart_path's wrapped workload
+RESTART_FAULT_STEP = 150  # iteration 0 raises in this step, a profiled one
+RUN_ENV = "CHIP_SMOKE_RUN"  # this run's stamp, in the environment of all it starts
 # The kernels of csrc/median_weights.cu: the register network (W <= 64) and the
 # general path; ``loop`` launches one of them per report.
 LOOP_KERNEL_FUNCTIONS = ("median_weights_network_kernel", "median_weights_loop_kernel")
+RADIX_KERNEL_FUNCTIONS = ("median_weights_radix_kernel",)
 # Score tolerances of the CPU tests of the group mode (tests/test_torch_scoring.py TOL).
 GROUP_TOL = {
     "section_scores": dict(rtol=1e-6, atol=0.0),
@@ -674,7 +716,557 @@ def group_path(smoke, view, counts, names):
                rounds=2, flagged=flagged_ranks, max_abs_diff=diffs, tolerance=GROUP_TOL)
 
 
+# The children of ``restart_path``. Each is a fresh interpreter started with
+# ``subprocess``, never ``fork``: this process holds a CUDA context, which a forked
+# child cannot use. Each prints one ``RESULT {json}`` line.
+RESTART_WRAPPER_KW = dict(monitor_interval=0.1, last_call_wait=0.1, heartbeat_interval=0.2)
+HANG_TIMEOUTS = dict(soft_timeout=1.5, hard_timeout=4.0, heartbeat_timeout=15.0,
+                     barrier_timeout=60.0, completion_timeout=60.0)
+# Wrapper timeouts of part (d): the Wrapper's defaults, which a real job runs with.
+TIMEOUT_WRAPPER_KW = dict(RESTART_WRAPPER_KW, soft_timeout=60.0, hard_timeout=90.0,
+                          heartbeat_timeout=30.0, barrier_timeout=120.0,
+                          completion_timeout=120.0)
+NCCL_GROUP_TIMEOUT_S = 2.0  # part (d)'s group timeout
+NCCL_BUSY_S = 6.0  # how long part (d) keeps the card busy ahead of its collective
+HANG_CHILD = """
+import json, os, sys, threading, time
+
+rank = int(sys.argv[1])
+os.environ.update(RANK=str(rank), WORLD_SIZE="2", TPU_RESILIENCY_STORE_HOST="127.0.0.1",
+                  TPU_RESILIENCY_STORE_PORT=sys.argv[2])
+import torch
+
+from tpu_resiliency_torch.inprocess import CallWrapper, RetryController, Wrapper
+from tpu_resiliency_torch.inprocess.tools.inject_fault import Fault, inject_fault, launch_spin
+
+dev = torch.device("cuda")
+parked = {"launches": 0, "max_ms": 0.0}
+
+def small_launch():
+    t0 = time.perf_counter()
+    (torch.ones(2, device=dev) + 1).sum().item()
+    return (time.perf_counter() - t0) * 1e3
+
+@Wrapper(initialize=RetryController(max_iterations=4), **json.loads(sys.argv[3]))
+def train(call: CallWrapper):
+    fs = call.frozen_state
+    for _ in range(3):
+        small_launch()
+        call.ping()
+    if call.iteration == 0 and fs.initial_rank == 1:
+        print("PING " + json.dumps({"t": time.time()}), flush=True)
+
+        def report_spin():  # runs while the main thread waits in the driver
+            while launch_spin.launches == 0:
+                time.sleep(0.01)
+            print("SPIN " + json.dumps({"launches": launch_spin.launches}), flush=True)
+
+        threading.Thread(target=report_spin, daemon=True).start()
+        inject_fault(Fault.DEVICE_HANG)  # never returns: pings stop here
+    if call.iteration == 0:
+        # Small launches while the peer spins: the card time-slices the contexts.
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            ms = small_launch()
+            parked["launches"] += 1
+            parked["max_ms"] = max(parked["max_ms"], ms)
+            time.sleep(0.02)
+        raise TimeoutError("restart never delivered")
+    return {"iteration": call.iteration, "world": fs.active_world_size}
+
+result = train()
+print("RESULT " + json.dumps({"rank": rank, "result": result, "parked": parked}), flush=True)
+"""
+ERROR_CHILD = """
+import json, os, sys
+
+os.environ.update(RANK="0", WORLD_SIZE="1", TPU_RESILIENCY_STORE_HOST="127.0.0.1",
+                  TPU_RESILIENCY_STORE_PORT=sys.argv[1])
+import torch
+
+from tpu_resiliency_torch.exceptions import HealthCheckError
+from tpu_resiliency_torch.inprocess import CallWrapper, CudaHealthCheck, RetryController, Wrapper
+from tpu_resiliency_torch.inprocess.tools.inject_fault import Fault, inject_fault, launch_trap
+from tpu_resiliency_torch.platform.device import device_liveness_probe
+
+out = {"probe_before": device_liveness_probe(timeout=15.0)}
+check = CudaHealthCheck(timeout=5.0)
+attempts = []
+
+@Wrapper(initialize=RetryController(max_iterations=5), health_check=CudaHealthCheck(timeout=5.0),
+         **json.loads(sys.argv[2]))
+def train(call: CallWrapper):
+    attempts.append(call.iteration)
+    if call.iteration == 0:
+        inject_fault(Fault.DEVICE_ERROR)
+        out["probe_after"] = device_liveness_probe(timeout=15.0)
+        try:
+            check(None)
+            out["health_check"] = "passed"
+        except HealthCheckError as e:
+            out["health_check"] = "HealthCheckError: " + str(e)[:160]
+    # The workload's own device use fails on the sticky error.
+    return float(torch.ones(2, device="cuda").sum())
+
+try:
+    train()
+    out["outcome"] = "completed"
+except HealthCheckError as e:
+    out["outcome"] = "health_excluded"
+out.update(attempts=attempts, trap_launches=launch_trap.launches)
+print("RESULT " + json.dumps(out), flush=True)
+os._exit(0)  # interpreter teardown would touch the lost context again
+"""
+FRESH_CHILD = """
+import json, time
+import torch
+x = torch.ones(1024, device="cuda")
+torch.cuda.synchronize()
+t = time.time()  # a fresh interpreter has reached the card
+print("RESULT " + json.dumps({"sum": float((x + 1).sum()), "t": t}), flush=True)
+"""
+TIMEOUT_CHILD = """
+import json, logging, os, socket, sys, time
+
+os.environ.update(RANK="0", WORLD_SIZE="1", TPU_RESILIENCY_STORE_HOST="127.0.0.1",
+                  TPU_RESILIENCY_STORE_PORT=sys.argv[1])
+import torch
+import torch.distributed as dist
+
+from tpu_resiliency_torch.inprocess import (
+    AbortTorchDistributed, CallWrapper, CudaHealthCheck, RetryController, Wrapper,
+)
+from tpu_resiliency_torch.platform import distributed
+
+kw = json.loads(sys.argv[2])
+spans, seen = {"abort": [], "health_check": [], "reinit": []}, {"teardown_warnings": []}
+
+class Keep(logging.Handler):  # the teardown's warnings go on the result line
+    def emit(self, record):
+        seen["teardown_warnings"].append(record.getMessage()[:300])
+
+logging.getLogger(distributed.__name__).addHandler(Keep(logging.WARNING))
+
+def timed(name, fn):
+    def call(state):
+        t0 = time.perf_counter()
+        try:
+            return fn(state)
+        finally:
+            spans[name].append((t0, time.perf_counter()))
+            if name == "abort":
+                seen["abort_method"] = distributed.last_abort_method
+    return call
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+def sleep_cycles(seconds):
+    # torch.cuda._sleep counts clock cycles: rate them on this card first.
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(100_000_000)
+    b.record()
+    b.synchronize()
+    return int(seconds * 100_000_000 / (a.elapsed_time(b) / 1e3))
+
+@Wrapper(initialize=RetryController(max_iterations=3), abort=timed("abort", AbortTorchDistributed()),
+         health_check=timed("health_check", CudaHealthCheck(timeout=30.0)), **kw["wrapper"])
+def train(call: CallWrapper):
+    it = call.iteration
+    seen.setdefault("group_left_open", []).append(distributed.client_active())
+    t0 = time.perf_counter()
+    distributed.initialize(f"tcp://localhost:{free_port()}", 1, 0, timeout=kw["group_timeout_s"])
+    spans["reinit"].append((t0, time.perf_counter()))
+    x = torch.full((4,), 3.0, device="cuda")
+    if it == 0:
+        # The card stays busy past the group's timeout, so NCCL's watchdog times out
+        # the collective queued behind; the step sees its work unfinished and raises.
+        torch.cuda._sleep(sleep_cycles(kw["busy_s"]))
+        work = dist.all_reduce(x, async_op=True)
+        queued = time.perf_counter()
+        while time.perf_counter() - queued < 1.5 * kw["group_timeout_s"]:
+            call.ping()
+            time.sleep(0.05)
+        if work.is_completed():
+            raise AssertionError("the collective finished inside the group's timeout")
+        seen["raise"] = time.perf_counter()
+        raise TimeoutError("all_reduce did not finish within the group's timeout")
+    torch.cuda.synchronize()
+    seen["first_step"] = time.perf_counter()
+    dist.all_reduce(x)
+    out = {"iteration": it, "all_reduce": x.tolist(), "backend": dist.get_backend(),
+           "group_left_open": seen["group_left_open"]}
+    distributed.shutdown_ordered(call.coord.store, 0, 1, iteration=it)
+    return out
+
+out = {"result": train()}
+t_raise, t_first = seen["raise"], seen["first_step"]
+(a0, a1), = [s for s in spans["abort"] if s[0] >= t_raise]
+(h0, h1), = [s for s in spans["health_check"] if s[0] >= t_raise]
+r0, r1 = spans["reinit"][1]
+restart = t_first - t_raise
+out.update(abort_method=seen["abort_method"], teardown_warnings=seen["teardown_warnings"],
+           nccl_async_error_handling=os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING"),
+           restart_wall_s={"raise_to_first_step": restart, "abort": a1 - a0,
+                           "health_check": h1 - h0, "reinit": r1 - r0,
+                           "other": restart - (a1 - a0) - (h1 - h0) - (r1 - r0)})
+print("RESULT " + json.dumps(out), flush=True)
+# On torch 2.11 this process did not exit at interpreter teardown after its group
+# had timed out (it was killed at its time limit): leave once the result is out.
+os._exit(0)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_children(children, timeout: float):
+    """Start one fresh interpreter per ``(script, argv)``, all together, from this
+    checkout; returns ``[(returncode, start and exit wall times, {tag: payloads} of its
+    RESULT, PING and SPIN lines, stderr tail)]``, killing any child still alive at
+    ``timeout``."""
+    import os
+    import threading
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here), TPU_RESILIENCY_LOG_LEVEL="WARNING")
+    for k in ("RANK", "WORLD_SIZE", "TPU_RESILIENCY_STORE_PORT", "TPU_RESILIENCY_STORE_HOST"):
+        env.pop(k, None)
+    starts, procs = [], []
+    for script, argv in children:
+        starts.append(time.time())
+        procs.append(subprocess.Popen([sys.executable, "-c", script, *map(str, argv)], cwd=here,
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    exits, outs = [None] * len(procs), [None] * len(procs)
+
+    def wait(i, p):
+        try:
+            outs[i] = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs[i] = p.communicate()
+        exits[i] = time.time()
+
+    threads = [threading.Thread(target=wait, args=(i, p)) for i, p in enumerate(procs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+    def tagged(out):
+        lines = {}
+        for ln in out.splitlines():
+            tag, _, rest = ln.partition(" ")
+            if tag in ("RESULT", "PING", "SPIN"):
+                lines.setdefault(tag, []).append(json.loads(rest))
+        return lines
+
+    return [(p.returncode, (starts[i], exits[i]), tagged(outs[i][0]), outs[i][1][-1500:])
+            for i, p in enumerate(procs)]
+
+
+def stray_processes() -> list[int]:
+    """Processes this run started that outlive their phase, the Wrapper's monitor
+    daemons above all (double-forked, so no longer our children): those whose
+    environment holds this run's stamp (``RUN_ENV``, set by :func:`main` before the
+    run starts, so every process it starts inherits it). This process is left out."""
+    import os
+
+    token = os.environ.get(RUN_ENV)
+    if not token:
+        return []
+    stamp = f"{RUN_ENV}={token}".encode()
+    found = []
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit() or int(entry.name) == os.getpid():
+            continue
+        try:
+            env = (entry / "environ").read_bytes().split(b"\0")
+        except OSError:
+            continue
+        if stamp in env:
+            found.append(int(entry.name))
+    return found
+
+
+def reap_strays(timeout: float) -> list[int]:
+    """Wait up to ``timeout`` s for :func:`stray_processes` to exit on their own (a
+    monitor leaves once its job is done), then SIGKILL what is left; returns those
+    pids."""
+    import os
+    import signal
+
+    deadline = time.monotonic() + timeout
+    while (left := stray_processes()) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return left
+
+
+def restart_in_process(smoke, rows, names, main_mask):
+    """``restart_path`` part 1: the Wrapper around config 4's detector workload at
+    full width, a one-process NCCL group per iteration; iteration 0 raises inside a
+    profiled step, iteration 1 completes. Returns the fields of the phase's line."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_resiliency_torch.inprocess import (
+        AbortTorchDistributed,
+        CallWrapper,
+        CudaHealthCheck,
+        RetryController,
+        Wrapper,
+    )
+    from tpu_resiliency_torch.inprocess.tools.inject_fault import InjectedFault
+    from tpu_resiliency_torch.integrations import (
+        LoopContext,
+        StragglerDetectionCallback,
+        run_training,
+    )
+    from tpu_resiliency_torch.ops import scoring_kernels as sk
+    from tpu_resiliency_torch.platform import distributed
+    from tpu_resiliency_torch.telemetry import Detector, MeshTelemetry
+    from tpu_resiliency_torch.telemetry.device_profiler import profiler_running
+
+    dev = torch.device("cuda")
+    seen = {"memory": {}, "loop_launches": {}, "windows": {}, "groups": {}, "t": {}}
+    spans = {"abort": [], "health_check": [], "reinit": []}
+
+    class Windows(StragglerDetectionCallback):
+        """Keeps the steps whose profiler window closed with samples."""
+
+        def _fold_profiler_window(self):
+            out = super()._fold_profiler_window()
+            seen["windows"].setdefault(self.iteration, []).append(self._step_count - 1)
+            return out
+
+    def timed(name, fn):
+        def call(state):
+            t0 = time.perf_counter()
+            try:
+                return fn(state)
+            finally:
+                spans[name].append((t0, time.perf_counter()))
+        return call
+
+    @Wrapper(
+        initialize=RetryController(max_iterations=3),
+        abort=timed("abort", AbortTorchDistributed()),
+        health_check=timed("health_check", CudaHealthCheck(timeout=30.0)),
+        soft_timeout=60.0, hard_timeout=90.0, heartbeat_timeout=60.0,
+        barrier_timeout=120.0, completion_timeout=120.0, **RESTART_WRAPPER_KW,
+    )
+    def train(call: CallWrapper):
+        it = call.iteration
+        if profiler_running() or Detector.initialized or distributed.client_active():
+            raise AssertionError(f"iteration {it} starts with a profiler session, the "
+                                 f"Detector or a process group left open")
+        t0 = time.perf_counter()
+        port = free_port()
+        distributed.initialize(f"tcp://localhost:{port}", 1, 0, timeout=60.0)
+        spans["reinit"].append((t0, time.perf_counter()))
+        group = dist.group.WORLD
+        probe = torch.full((4,), 3.0, device=dev)
+        dist.all_reduce(probe)
+        seen["groups"][it] = {"group": group, "port": port, "backend": dist.get_backend(group),
+                              "all_reduce": probe.tolist()}
+        mt = MeshTelemetry(R, signal_names=names, window=W)
+        reports = []
+        start_loop = sk.fused_median_weights.launches_by_mode["loop"]
+
+        def step(state, i):
+            if i == 0:
+                torch.cuda.synchronize()
+                seen["t"].setdefault("first_step", {})[it] = time.perf_counter()
+                seen["memory"][it] = torch.cuda.memory_allocated()
+            mt.push(state, rows[i % W])
+            if i % REPORT_INTERVAL == 0:
+                state, rep = mt.generate_report(state)
+                reports.append(rep)
+            if it == 0 and i == RESTART_FAULT_STEP:
+                seen["loop_launches"][it] = (sk.fused_median_weights.launches_by_mode["loop"]
+                                             - start_loop)
+                seen["t"]["raise"] = time.perf_counter()
+                raise InjectedFault(f"injected at step {i} of iteration {it}")
+            torch.cuda.synchronize()  # the step's loss read
+            return state
+
+        cb = Windows(report_time_interval=3600.0, profile_programs_every=PROFILE_EVERY,
+                     profile_ops=True)
+        cb.iteration = it
+        ctx = run_training(step, mt.init_state(), RESTART_STEPS, callbacks=[cb],
+                           ctx=LoopContext(rank=0, world_size=1))
+        seen["loop_launches"][it] = sk.fused_median_weights.launches_by_mode["loop"] - start_loop
+        distributed.shutdown_ordered(call.coord.store, 0, 1, iteration=it)
+        return {"iteration": it, "steps": ctx.step, "mask": flagged(reports[-1], R)}
+
+    env_keys = ("RANK", "WORLD_SIZE", "TPU_RESILIENCY_STORE_HOST", "TPU_RESILIENCY_STORE_PORT")
+    saved = {k: os.environ.get(k) for k in env_keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", TPU_RESILIENCY_STORE_HOST="127.0.0.1",
+                      TPU_RESILIENCY_STORE_PORT=str(free_port()))
+    try:
+        result = train()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    g0, g1 = seen["groups"][0], seen["groups"][1]
+    if result["iteration"] != 1 or sorted(seen["groups"]) != [0, 1]:
+        raise AssertionError(f"iterations {sorted(seen['groups'])}, final {result['iteration']}")
+    if g1["group"] is g0["group"] or g1["port"] == g0["port"] or g1["backend"] != "nccl" \
+            or g1["all_reduce"] != [3.0] * 4:
+        raise AssertionError(f"iteration 1's group is not a new, working NCCL group: {g1}")
+    if not all(seen["loop_launches"].get(i, 0) > 0 for i in (0, 1)):
+        raise AssertionError(f"loop launches per iteration {seen['loop_launches']}")
+    if not np.array_equal(result["mask"], main_mask):
+        raise AssertionError("iteration 1's final report flags other ranks than the main path")
+    want_windows = list(range(0, RESTART_STEPS, PROFILE_EVERY))
+    if seen["windows"].get(1) != want_windows:
+        raise AssertionError(f"iteration 1's profiler windows closed at {seen['windows'].get(1)}, "
+                             f"want {want_windows}")
+    mem = seen["memory"]
+    if abs(mem[1] - mem[0]) > 1 << 20:
+        raise AssertionError(f"memory at iteration 1's first step {mem[1]} B against "
+                             f"{mem[0]} B at iteration 0's")
+    t_raise, t_first = seen["t"]["raise"], seen["t"]["first_step"][1]
+    (a0, a1), = [s for s in spans["abort"] if s[0] >= t_raise]
+    (h0, h1), = [s for s in spans["health_check"] if s[0] >= t_raise]
+    r0, r1 = spans["reinit"][1]
+    restart_s = t_first - t_raise
+    return dict(
+        ranks=R, signals=S, window=W, steps_per_iteration=RESTART_STEPS,
+        fault_step=RESTART_FAULT_STEP, iterations=[0, 1],
+        loop_launches_by_iteration=seen["loop_launches"],
+        profiler_windows_by_iteration=seen["windows"],
+        groups=[{"port": g["port"], "backend": g["backend"], "all_reduce": g["all_reduce"]}
+                for g in (g0, g1)],
+        abort_method=distributed.last_abort_method,
+        nccl_async_error_handling=os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING"),
+        memory_allocated_first_step=mem, flagged=int(result["mask"].sum()),
+        restart_wall_s={"raise_to_first_step": restart_s, "abort": a1 - a0,
+                        "health_check": h1 - h0, "reinit": r1 - r0,
+                        "other": restart_s - (a1 - a0) - (h1 - h0) - (r1 - r0)},
+    )
+
+
+def restart_path(smoke, rows, names, main_mask, built_faults):
+    """Phase 12: in-process restart on the card (see the module's docstring)."""
+    from tpu_resiliency_torch.ops import scoring_kernels as sk
+
+    sk.reset_launches()
+    fields = restart_in_process(smoke, rows, names, main_mask)
+    loop_launches = sk.fused_median_weights.launches_by_mode["loop"]
+
+    # (b) Device hang: two ranks on the one card, no process group between them.
+    hang_kw = dict(RESTART_WRAPPER_KW, **HANG_TIMEOUTS)
+    store_port = free_port()
+    (rc0, _, out0, err0), (rc1, (_, exit1), out1, err1) = run_children(
+        [(HANG_CHILD, [r, store_port, json.dumps(hang_kw)]) for r in (0, 1)], timeout=180.0)
+    if rc1 == 0 or "RESULT" in out1 or "PING" not in out1 or "SPIN" not in out1:
+        raise AssertionError(f"the hung rank was not killed (rc {rc1}): {out1} {err1}")
+    survivor = out0.get("RESULT", [{}])[0]
+    if rc0 != 0 or survivor.get("result") != {"iteration": 1, "world": 1}:
+        raise AssertionError(f"the survivor did not finish at world 1 (rc {rc0}): {out0} {err0}")
+    parked = survivor["parked"]
+    hang_to_kill = exit1 - out1["PING"][-1]["t"]
+    kill_window = (HANG_TIMEOUTS["hard_timeout"] - RESTART_WRAPPER_KW["heartbeat_interval"],
+                   HANG_TIMEOUTS["hard_timeout"] + 1.0)
+    if not kill_window[0] <= hang_to_kill <= kill_window[1]:
+        raise AssertionError(f"the hung rank died {hang_to_kill:.3f} s after its last ping, "
+                             f"outside {kill_window}")
+
+    # After the kill, three fresh interpreters together: (c) a fresh process must reach
+    # the card (the spinning context died with its process), timed from its launch to
+    # its first synchronize, which is what a process restart pays at the least; the
+    # device error, one rank, a real sticky error (it stays within its own context);
+    # (d) one rank whose collective times out for real under the Wrapper.
+    error_kw = dict(RESTART_WRAPPER_KW, soft_timeout=10.0, hard_timeout=30.0,
+                    heartbeat_timeout=10.0, barrier_timeout=30.0, completion_timeout=30.0)
+    timeout_kw = {"wrapper": TIMEOUT_WRAPPER_KW, "group_timeout_s": NCCL_GROUP_TIMEOUT_S,
+                  "busy_s": NCCL_BUSY_S}
+    (fresh_rc, (fresh_start, _), fresh, fresh_err), (erc, _, eout, eerr), \
+        (trc, _, tout, terr) = run_children(
+            [(FRESH_CHILD, []), (ERROR_CHILD, [free_port(), json.dumps(error_kw)]),
+             (TIMEOUT_CHILD, [free_port(), json.dumps(timeout_kw)])],
+            timeout=TIMEOUT_WRAPPER_KW["barrier_timeout"] + 60.0)
+    if fresh_rc != 0 or fresh.get("RESULT", [{}])[0].get("sum") != 2048.0:
+        raise AssertionError(f"a fresh process could not use the card: {fresh} {fresh_err}")
+    fresh_to_card = fresh["RESULT"][0]["t"] - fresh_start
+    restart_s = fields["restart_wall_s"]["raise_to_first_step"]
+    if restart_s >= fresh_to_card:
+        raise AssertionError(f"the in-process restart took {restart_s:.3f} s, no faster than a "
+                             f"fresh interpreter's {fresh_to_card:.3f} s to the card")
+    if erc != 0 or "RESULT" not in eout:
+        raise AssertionError(f"the device-error child failed (rc {erc}): {eerr}")
+    err = eout["RESULT"][0]
+    if not (err["probe_before"] and err["probe_after"] is False
+            and err["health_check"].startswith("HealthCheckError")
+            and err["outcome"] == "health_excluded" and err["attempts"] == [0]):
+        raise AssertionError(f"the trapped rank was not excluded as the reference's: {err}")
+    if trc != 0 or "RESULT" not in tout:
+        raise AssertionError(f"the NCCL-timeout child failed (rc {trc}): {tout} {terr}")
+    nccl_timeout = tout["RESULT"][0]
+    got = nccl_timeout["result"]
+    if got != {"iteration": 1, "all_reduce": [3.0] * 4, "backend": "nccl",
+               "group_left_open": [False, False]}:
+        raise AssertionError(f"the rank whose collective timed out did not restart into a new "
+                             f"NCCL group: {nccl_timeout}")
+    timeout_restart = nccl_timeout["restart_wall_s"]["raise_to_first_step"]
+    if timeout_restart >= TIMEOUT_WRAPPER_KW["barrier_timeout"]:
+        raise AssertionError(f"the restart after a NCCL timeout took {timeout_restart:.3f} s, "
+                             f"past the Wrapper's barrier timeout")
+
+    killed = reap_strays(timeout=30.0)
+    smoke.emit(
+        "restart_path", **fields, fresh_interpreter_to_card_s=fresh_to_card,
+        stray_processes_killed=len(killed),
+        device_hang={"survivor": survivor["result"], "hung_rank_returncode": rc1,
+                     "last_ping_to_kill_s": hang_to_kill, "limit_s": kill_window,
+                     "soft_timeout_s": HANG_TIMEOUTS["soft_timeout"],
+                     "hard_timeout_s": HANG_TIMEOUTS["hard_timeout"],
+                     "survivor_launches_while_peer_spun": parked["launches"],
+                     "survivor_max_launch_ms": parked["max_ms"],
+                     "spin_launches": out1["SPIN"][0]["launches"],
+                     "fresh_process_after_kill": fresh["RESULT"][0]["sum"]},
+        device_error=err,
+        nccl_timeout=dict(nccl_timeout, group_timeout_s=NCCL_GROUP_TIMEOUT_S,
+                          busy_s=NCCL_BUSY_S, limit_s=TIMEOUT_WRAPPER_KW["barrier_timeout"]),
+        fault_kernels={"source": "tpu_resiliency_torch/csrc/faults.cu",
+                       "build_seconds": built_faults.build_seconds,
+                       "ptxas": list(built_faults.ptxas)},
+    )
+    return loop_launches
+
+
 def main() -> int:
+    import os
+
+    if not os.environ.get(RUN_ENV):
+        # Stamp the run and start over in its place (same pid), so that every
+        # process the run starts, forked or spawned, holds the stamp in its
+        # environment: that is how reap_strays tells this run's processes from others.
+        import uuid
+
+        os.execve(sys.executable, sys.orig_argv, dict(os.environ, **{RUN_ENV: uuid.uuid4().hex}))
+
     import torch
 
     if not torch.cuda.is_available():
@@ -711,9 +1303,12 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # 2. build ---------------------------------------------------------------
+    from tpu_resiliency_torch.inprocess.tools.inject_fault import FAULT_KERNELS
+
     t0 = time.perf_counter()
-    _build.build(sk.KERNEL_NAMES.values())
+    _build.build([*sk.KERNEL_NAMES.values(), FAULT_KERNELS])
     built = {mode: _build.load(name) for mode, name in sk.KERNEL_NAMES.items()}
+    built_faults = _build.load(FAULT_KERNELS)
     nvcc = _build.find_nvcc()
 
     def instances(mode, pattern, top, other_name):
@@ -1082,22 +1677,39 @@ def main() -> int:
     # 9. breakdown ---------------------------------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
-    def breakdown(label, mt, st, score_ms, reports=5):
+    from tpu_resiliency_torch.telemetry.device_profiler import DeviceTimeProfiler
+
+    def breakdown(label, mt, st, score_ms, kernel_functions, reports=5):
+        """Device time by kernel over ``reports`` reports in one profiler session,
+        opened as a ``DeviceTimeProfiler`` window opens (a synchronize, then its
+        settle pause: the trace can lose a session's first records). The mode's
+        kernel records must number its launches, or a record was lost."""
+        mode = mt.kernel_mode
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(DeviceTimeProfiler.SETTLE_S)
+            before = fused_median_weights.launches_by_mode[mode]
             for _ in range(reports):
                 mt.score(st)
             torch.cuda.synchronize()
-        rows_by_time = []
+        launched = fused_median_weights.launches_by_mode[mode] - before
+        rows_by_time, kernel_records = [], 0
         for evt in prof.key_averages():
             dev_us = getattr(evt, "device_time_total", None)
             if dev_us is None:
                 dev_us = getattr(evt, "cuda_time_total", 0)
             if dev_us and evt.key and not evt.key.startswith("aten::"):
                 rows_by_time.append((evt.key, dev_us / reports / 1e3, evt.count // reports))
+                if any(f in evt.key for f in kernel_functions):
+                    kernel_records += evt.count
+        if not launched == kernel_records == reports:
+            raise AssertionError(f"breakdown {label}: {kernel_records} {mode} kernel records, "
+                                 f"{launched} launches, {reports} reports")
         rows_by_time.sort(key=lambda r: -r[1])
         busy_ms = sum(ms for _, ms, _ in rows_by_time)
         smoke.emit(
-            "breakdown", path=label, reports=reports,
+            "breakdown", path=label, reports=reports, kernel_mode=mode,
+            kernel_records=kernel_records, kernel_launches=launched,
             device_busy_ms_per_report=busy_ms or "not measured",
             # share of the event-timed report (phase times) in which the card ran no kernel
             idle_share=1.0 - busy_ms / score_ms if busy_ms else "not measured",
@@ -1106,15 +1718,17 @@ def main() -> int:
             ] or "not measured",
         )
 
-    breakdown("config4", mt_t, st, t4["score_ms_per_report"])
-    breakdown("long_window", mt_lt, st_l, tl["score_ms_per_report"], reports=3)
+    breakdown("config4", mt_t, st, t4["score_ms_per_report"], LOOP_KERNEL_FUNCTIONS)
+    breakdown("long_window", mt_lt, st_l, tl["score_ms_per_report"], RADIX_KERNEL_FUNCTIONS,
+              reports=3)
 
-    # 10. detector path; 11. group path ------------------------------------------
+    # 10. detector path; 11. group path; 12. restart path ------------------------
     del mt_t, st, mt_lt, st_l, long_ring
     torch.cuda.empty_cache()
     path_launches["loop"] += detector_path(smoke, rows, names, flagged(rep1, R))
     group_path(smoke, rows.permute(1, 2, 0), torch.full((R, S), W, dtype=torch.int32, device=dev),
                names)
+    path_launches["loop"] += restart_path(smoke, rows, names, flagged(rep1, R), built_faults)
 
     kernels = []
     for mode in sk.MODES:

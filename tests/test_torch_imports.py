@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import tpu_resiliency_torch
+from tpu_resiliency_torch.inprocess import CudaHealthCheck
 from tpu_resiliency_torch.platform import device as port_device
 from tpu_resiliency_torch.telemetry.convert import telemetry_state_from_numpy
 from tpu_resiliency_torch.telemetry.detector import Detector
@@ -49,11 +50,34 @@ SLICE_MODULES = (
     "tpu_resiliency_torch.integrations.straggler_callback",
 )
 
+#: Modules of the in-process restart slice, each imported by the subprocess check.
+INPROCESS_MODULES = (
+    "tpu_resiliency_torch.utils.location",
+    "tpu_resiliency_torch.utils.tracing",
+    "tpu_resiliency_torch.utils.opstats",
+    "tpu_resiliency_torch.utils.flight_recorder",
+    "tpu_resiliency_torch.platform.chaos",
+    "tpu_resiliency_torch.platform.framing",
+    "tpu_resiliency_torch.platform.store",
+    "tpu_resiliency_torch.platform.shardstore",
+    "tpu_resiliency_torch.platform.device",
+    "tpu_resiliency_torch.platform.distributed",
+    "tpu_resiliency_torch.watchdog.state_machine",
+    "tpu_resiliency_torch.inprocess",
+    "tpu_resiliency_torch.inprocess.abort",
+    "tpu_resiliency_torch.inprocess.health_check",
+    "tpu_resiliency_torch.inprocess.monitor_process",
+    "tpu_resiliency_torch.inprocess.progress_watchdog",
+    "tpu_resiliency_torch.inprocess.wrap",
+    "tpu_resiliency_torch.inprocess.tools",
+    "tpu_resiliency_torch.inprocess.tools.inject_fault",
+)
+
 
 def test_importing_every_module_loads_no_jax():
     names = ["tpu_resiliency_torch", *_module_names()]
     assert "tpu_resiliency_torch.ops.scoring_kernels" in names
-    assert set(SLICE_MODULES) <= set(names)
+    assert set(SLICE_MODULES) <= set(names) and set(INPROCESS_MODULES) <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -73,7 +97,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     """Also covers imports inside functions, which the subprocess check never runs."""
     files = {str(p.relative_to(REPO_ROOT).with_suffix("")).replace("/", ".")
              for p in PACKAGE_DIR.rglob("*.py")}
-    assert {m if m in files else m + ".__init__" for m in SLICE_MODULES} <= files
+    assert {m if m in files else m + ".__init__"
+            for m in SLICE_MODULES + INPROCESS_MODULES} <= files
     for path in PACKAGE_DIR.rglob("*.py"):
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -89,6 +114,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 
 
 ENTRY_POINTS = {
+    "CudaHealthCheck": lambda **kw: CudaHealthCheck(**kw),
     "DeviceRings": lambda **kw: DeviceRings.create(2, 4, **kw),
     "DeviceTimeProfiler": lambda **kw: DeviceTimeProfiler(**kw),
     "MeshTelemetry": lambda **kw: MeshTelemetry(8, **kw),

@@ -28,6 +28,8 @@ ANSWERED = {
     "tpu_resiliency.telemetry.scoring.score_round_jit": "score_round(group=...)",
     "tpu_resiliency.telemetry.scoring.make_sharded_scorer": "score_round(group=...)",
     "tpu_resiliency.telemetry.scoring.score_round_sharded": "score_round(group=...)",
+    "tpu_resiliency.inprocess.health_check.JaxHealthCheck": "CudaHealthCheck",
+    "tpu_resiliency.inprocess.abort.AbortJaxDistributed": "AbortTorchDistributed",
 }
 
 #: Reference modules with no counterpart in the port yet, by package.
@@ -53,25 +55,6 @@ NOT_YET_PORTED = (
     "tpu_resiliency.fleet.aggregator",
     "tpu_resiliency.fleet.registry",
     "tpu_resiliency.fleet.server",
-    # inprocess
-    "tpu_resiliency.inprocess",
-    "tpu_resiliency.inprocess.abort",
-    "tpu_resiliency.inprocess.attribution",
-    "tpu_resiliency.inprocess.completion",
-    "tpu_resiliency.inprocess.compose",
-    "tpu_resiliency.inprocess.coordination",
-    "tpu_resiliency.inprocess.finalize",
-    "tpu_resiliency.inprocess.health_check",
-    "tpu_resiliency.inprocess.initialize",
-    "tpu_resiliency.inprocess.monitor_process",
-    "tpu_resiliency.inprocess.monitor_thread",
-    "tpu_resiliency.inprocess.nested_restarter",
-    "tpu_resiliency.inprocess.progress_watchdog",
-    "tpu_resiliency.inprocess.rank_assignment",
-    "tpu_resiliency.inprocess.state",
-    "tpu_resiliency.inprocess.tools",
-    "tpu_resiliency.inprocess.tools.inject_fault",
-    "tpu_resiliency.inprocess.wrap",
     # integrations
     "tpu_resiliency.integrations.checkpoint_callback",
     "tpu_resiliency.integrations.ft_callbacks",
@@ -98,13 +81,8 @@ NOT_YET_PORTED = (
     "tpu_resiliency.parallel.pipeline",
     "tpu_resiliency.parallel.ring_attention",
     # platform
-    "tpu_resiliency.platform.chaos",
     "tpu_resiliency.platform.compile_cache",
-    "tpu_resiliency.platform.distributed",
-    "tpu_resiliency.platform.framing",
     "tpu_resiliency.platform.ipc",
-    "tpu_resiliency.platform.shardstore",
-    "tpu_resiliency.platform.store",
     "tpu_resiliency.platform.treecomm",
     # telemetry
     "tpu_resiliency.telemetry.remediation",
@@ -123,21 +101,16 @@ NOT_YET_PORTED = (
     "tpu_resiliency.tools.trace_export",
     # utils
     "tpu_resiliency.utils.byteflow",
-    "tpu_resiliency.utils.flight_recorder",
     "tpu_resiliency.utils.goodput",
-    "tpu_resiliency.utils.location",
     "tpu_resiliency.utils.metrics",
-    "tpu_resiliency.utils.opstats",
     "tpu_resiliency.utils.stackdump",
     "tpu_resiliency.utils.timers",
     "tpu_resiliency.utils.timeseries",
-    "tpu_resiliency.utils.tracing",
     # watchdog
     "tpu_resiliency.watchdog.config",
     "tpu_resiliency.watchdog.health",
     "tpu_resiliency.watchdog.monitor_client",
     "tpu_resiliency.watchdog.monitor_server",
-    "tpu_resiliency.watchdog.state_machine",
     "tpu_resiliency.watchdog.timeouts",
 )
 
@@ -158,6 +131,47 @@ STRAGGLER_SLICE = (
     "tpu_resiliency.integrations.loop",
     "tpu_resiliency.integrations.straggler_callback",
 )
+
+
+#: The modules of the in-process restart slice and the support it stands on: each
+#: has its counterpart.
+INPROCESS_SLICE = (
+    "tpu_resiliency.utils.location",
+    "tpu_resiliency.utils.tracing",
+    "tpu_resiliency.utils.opstats",
+    "tpu_resiliency.utils.flight_recorder",
+    "tpu_resiliency.platform.chaos",
+    "tpu_resiliency.platform.framing",
+    "tpu_resiliency.platform.store",
+    "tpu_resiliency.platform.shardstore",
+    "tpu_resiliency.platform.device",
+    "tpu_resiliency.platform.distributed",
+    "tpu_resiliency.watchdog.state_machine",
+    "tpu_resiliency.inprocess",
+    "tpu_resiliency.inprocess.state",
+    "tpu_resiliency.inprocess.attribution",
+    "tpu_resiliency.inprocess.compose",
+    "tpu_resiliency.inprocess.completion",
+    "tpu_resiliency.inprocess.finalize",
+    "tpu_resiliency.inprocess.initialize",
+    "tpu_resiliency.inprocess.rank_assignment",
+    "tpu_resiliency.inprocess.progress_watchdog",
+    "tpu_resiliency.inprocess.monitor_thread",
+    "tpu_resiliency.inprocess.coordination",
+    "tpu_resiliency.inprocess.monitor_process",
+    "tpu_resiliency.inprocess.nested_restarter",
+    "tpu_resiliency.inprocess.abort",
+    "tpu_resiliency.inprocess.health_check",
+    "tpu_resiliency.inprocess.tools",
+    "tpu_resiliency.inprocess.tools.inject_fault",
+    "tpu_resiliency.inprocess.wrap",
+)
+
+
+def _answered(package: str) -> dict[str, str]:
+    """ANSWERED's reference names exported by ``package``, mapped to their answers."""
+    return {name.rsplit(".", 1)[1]: answer for name, answer in ANSWERED.items()
+            if name.startswith(package + ".")}
 
 
 def _walk(path: Path, prefix: str):
@@ -208,6 +222,12 @@ def test_the_straggler_slice_is_ported(module):
     assert has_counterpart(module) and module not in NOT_YET_PORTED
 
 
+@pytest.mark.parametrize("module", INPROCESS_SLICE)
+def test_the_inprocess_slice_is_ported(module):
+    assert module in reference_modules()
+    assert has_counterpart(module) and module not in NOT_YET_PORTED
+
+
 def test_renamed_modules_exist_on_both_sides():
     for ref, port in RENAMED.items():
         assert ref in reference_modules()
@@ -218,7 +238,7 @@ def test_the_port_exports_every_reference_telemetry_name_or_answers_it():
     import tpu_resiliency.telemetry as ref
     import tpu_resiliency_torch.telemetry as port
 
-    answered = {name.rsplit(".", 1)[1] for name in ANSWERED}
+    answered = set(_answered("tpu_resiliency.telemetry"))
     missing = sorted(set(ref.__all__) - set(port.__all__) - answered)
     assert not missing, f"reference telemetry names with no port export: {missing}"
     for name in answered:
@@ -238,3 +258,16 @@ def test_the_port_exports_the_ported_integration_names():
     }
     assert all(module in NOT_YET_PORTED for module in not_yet.values())
     assert sorted(set(ref.__all__) - set(port.__all__)) == sorted(not_yet)
+
+
+def test_the_port_exports_every_reference_inprocess_name_or_answers_it():
+    import tpu_resiliency.inprocess as ref
+    import tpu_resiliency_torch.inprocess as port
+
+    answered = _answered("tpu_resiliency.inprocess")
+    assert answered == {"JaxHealthCheck": "CudaHealthCheck",
+                        "AbortJaxDistributed": "AbortTorchDistributed"}
+    assert sorted(set(ref.__all__) - set(port.__all__)) == sorted(answered)
+    assert sorted(set(port.__all__) - set(ref.__all__)) == sorted(answered.values())
+    for name, answer in answered.items():
+        assert not hasattr(port, name) and callable(getattr(port, answer))

@@ -12,6 +12,13 @@ hand-written Hopper kernels of the window reduction (``ops.scoring_kernels``:
 their auto-selection (``ops.kernel_sweep``); and copies of the JAX-free support they
 need (``exceptions``, ``utils.logging``, ``utils.events``, ``watchdog.data``).
 
+The in-process restart slice: ``inprocess`` (the ``Wrapper`` restart loop, with
+``AbortTorchDistributed`` and ``CudaHealthCheck``), ``platform.distributed`` (the
+``torch.distributed`` lifecycle), the device liveness probe (``platform.device``),
+device faults as CUDA kernels (``csrc/faults.cu`` behind
+``inprocess.tools.inject_fault``), and copies of the store, framing, chaos, flight
+recorder, tracing and state-machine modules they stand on.
+
 Entry points run on the CUDA card by default and raise when there is none; pass
 ``device="cpu"`` to run the plain PyTorch path on the CPU.
 """

@@ -6,11 +6,12 @@ events, one JSON line each, to the one stream the launcher names, and every
 consumer of the JAX package's stream (``tools/events_summary.py``,
 ``tools/trace_export.py``) reads the port's records as its own.
 
-Only the JSONL wiring is ported. The bridges the reference also wires from the
-environment, ``TPU_RESILIENCY_METRICS_FILE`` and ``TPU_RESILIENCY_METRICS_PUSH``
-(``utils/metrics.py``) and ``TPU_RESILIENCY_FLIGHT_DIR``
-(``utils/flight_recorder.py``), belong to modules the port does not hold yet: a
-process that sets one is warned once, and the variable has no effect.
+The JSONL sink and the flight recorder named by ``TPU_RESILIENCY_FLIGHT_DIR``
+(``utils/flight_recorder.py``) are wired as the reference wires them. The metrics
+bridges the reference also wires from the environment, ``TPU_RESILIENCY_METRICS_FILE``
+and ``TPU_RESILIENCY_METRICS_PUSH`` (``utils/metrics.py``), belong to a module the
+port does not hold yet: a process that sets one is warned once, and the variable has
+no effect.
 
 Design:
 
@@ -41,9 +42,11 @@ from tpu_resiliency_torch.utils.logging import get_logger
 log = get_logger(__name__)
 
 EVENTS_FILE_ENV = "TPU_RESILIENCY_EVENTS_FILE"
-#: The reference's metrics-snapshot, flight-recorder and metrics-push variables:
-#: their sinks are not ported yet (``UNPORTED_ENVS`` below).
+#: The reference's metrics-snapshot and metrics-push variables: their sinks are not
+#: ported yet (``UNPORTED_ENVS`` below).
 METRICS_FILE_ENV = "TPU_RESILIENCY_METRICS_FILE"
+#: Set to a directory to ALSO keep a crash-surviving flight-recorder ring of
+#: this process's recent events (``utils/flight_recorder.py``).
 FLIGHT_DIR_ENV = "TPU_RESILIENCY_FLIGHT_DIR"
 METRICS_PUSH_ENV = "TPU_RESILIENCY_METRICS_PUSH"
 #: Set to a job identity (the launcher exports its --rdzv-id when --fleet-dir
@@ -192,23 +195,28 @@ def remove_sink(sink: Callable[[Event], None]) -> None:
 
 
 def clear_sinks() -> None:
-    global _env_wired_for
+    global _env_wired_for, _flight_wired_for
     with _sinks_lock:
         _sinks.clear()
     _env_wired_for = None
+    _flight_wired_for = None
 
+
+_flight_wired_for: Optional[str] = None
 
 #: Variables of the reference's event wiring whose modules the port does not hold
 #: yet; each is warned about once per process.
-UNPORTED_ENVS = (METRICS_FILE_ENV, METRICS_PUSH_ENV, FLIGHT_DIR_ENV)
+UNPORTED_ENVS = (METRICS_FILE_ENV, METRICS_PUSH_ENV)
 _warned_unported: set[str] = set()
 
 
 def _wire_env_sink() -> None:
     """Attach (once per path) the JSONL sink named by $TPU_RESILIENCY_EVENTS_FILE.
     Re-checked on every record so a launcher exporting the variable after import
-    still takes effect, and forked/spawned children wire themselves lazily."""
-    global _env_wired_for
+    still takes effect, and forked/spawned children wire themselves lazily.
+    The flight recorder named by $TPU_RESILIENCY_FLIGHT_DIR rides the same
+    lazy wiring (flight_recorder.install registers itself as a sink)."""
+    global _env_wired_for, _flight_wired_for
     path = os.environ.get(EVENTS_FILE_ENV)
     if path and path != _env_wired_for:
         with _sinks_lock:
@@ -219,6 +227,18 @@ def _wire_env_sink() -> None:
                 except OSError as e:
                     log.warning(f"cannot open events file {path!r}: {e}")
                     _env_wired_for = path  # don't retry every event
+    fpath = os.environ.get(FLIGHT_DIR_ENV)
+    if fpath and fpath != _flight_wired_for:
+        try:
+            # Lazy import: events stays the dependency root. install() adds the
+            # sink itself. Marked wired only on success so a transient
+            # mkdir/open failure is retried on the next record.
+            from tpu_resiliency_torch.utils import flight_recorder
+
+            if flight_recorder.install_from_env() is not None:
+                _flight_wired_for = fpath
+        except Exception as e:
+            log.warning(f"cannot wire flight recorder in {fpath!r}: {e}")
     for env in UNPORTED_ENVS:
         if env not in _warned_unported and os.environ.get(env):
             _warned_unported.add(env)

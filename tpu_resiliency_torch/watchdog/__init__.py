@@ -1,6 +1,6 @@
-"""The watchdog's shared message types (``watchdog/data.py``). The rank monitor, its
-client and server, the health checks and the timeouts calculator are not ported
-yet (see ROADMAP.md)."""
+"""The watchdog's shared message types (``watchdog/data.py``) and the restarter state
+machine (``watchdog/state_machine.py``). The rank monitor, its client and server, the
+health checks and the timeouts calculator are not ported yet (see ROADMAP.md)."""
 
 from tpu_resiliency_torch.watchdog.data import (
     HeartbeatTimeouts,
