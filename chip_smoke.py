@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's straggler-telemetry and in-process restart paths on one
-CUDA card.
+"""Drive the PyTorch port's straggler-telemetry, in-process restart and checkpoint
+paths on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA card
 and the CUDA toolkit (``nvcc``), builds the port's three window-reduction kernels
@@ -132,6 +132,36 @@ printing one JSON line that carries the card's name and power limit:
    started must be gone 30 s after the phase (what is left is killed and counted):
    ``main`` stamps the run in the environment (``RUN_ENV``) and starts over in its
    own place, so every process it starts holds the stamp, and only those are reaped.
+13. ``checkpoint_path``: local and async checkpointing on the card, on the one-rank
+   shard of BASELINE config 5's Llama-3-8B that a 16-rank job holds (each leaf of
+   ``init_params`` cut to 1/16 along its leading axis: 2 layers, ``embed`` 8016 rows,
+   ``lm_head`` 256 rows, ``final_norm`` 256): f32 parameters, AdamW's ``mu`` and ``nu``
+   (6,022,695,936 B), a step counter and a bf16 copy of ``embed``, from a seeded CUDA
+   generator. It first prints the host memory available and the free disk of its
+   temporary directory, and fails if they cannot hold what it writes (the state is
+   never shrunk). First the link's yardstick: a plain ``copy_`` of the same bytes into
+   one pinned buffer. (a) ``LocalCheckpointManager.save(..., is_async=True)`` three
+   times, every leaf updated in place (``add_`` of seeded noise) right after each
+   ``save()`` returns; each container must load onto the card bit-identical (as integer
+   views) to a blocking host copy taken before its save; device memory after finalize
+   within 1 MiB of before; the staging pool at least 1 hit and at most 2 misses. Then
+   the blocking engine (``pipelined=False``: ``copy_tensors_to_host``, then the save)
+   on the same state; the pipelined foreground window must be at most 0.25x its
+   (``tests/checkpoint/test_ckpt_save_perf.py``'s gate). Printed: the foreground window
+   (host clock and CUDA events), save to finalized container, the D2H GB/s (the side
+   stream's device time) beside the yardstick's, the background stream's GB/s, the
+   blocking engine's write GB/s, the pool, device memory, and the snapshot design's
+   cost (its extra device bytes and the device time of its clones, which the next
+   step waits behind). (b) Two ranks in fresh interpreters on the one card, each
+   holding a 1/32 shard (3,011,347,968 B), save once with ``CliqueReplicationStrategy``
+   over the port's store and a ``TreeLayout``; rank 1's directory is wiped and both
+   restore onto the card in fresh interpreters, rank 1 from rank 0's mirror,
+   bit-identical; then ``load_resharded_tree`` of the two containers on rank 0's disk
+   onto one rank must equal their concatenation; no process may be left. (c)
+   ``run_training`` with ``HierarchicalCheckpointCallback`` (local tier every 2 steps,
+   async) over 6 steps of (a)'s state with in-place updates; ``restore_latest`` must
+   bring back step 6's values on the card. The checkpoint path launches none of the
+   median kernels; their counts are zeroed before it and printed.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
@@ -423,6 +453,86 @@ def flagged(report, n_ranks):
     pred = np.zeros(n_ranks, dtype=bool)
     pred[[sid.rank for sid in report.identify_stragglers().by_perf]] = True
     return pred
+
+
+# -- the checkpoint state -----------------------------------------------------------
+
+#: Llama-3-8B's widths, the leaf shapes of ``TransformerConfig.llama3_8b()`` and
+#: ``init_params`` (``tpu_resiliency/models/transformer.py:52-99``), copied as numbers.
+LLAMA3_8B = dict(d=4096, q=4096, kv=1024, ff=14336, vocab=128256)
+#: The 1/16 shard of a 16-rank job (BASELINE config 5): each leaf cut along its
+#: leading axis; the 1/32 shard each of ``checkpoint_path`` (b)'s two ranks holds.
+SHARD_16 = dict(LLAMA3_8B, n_layers=2, embed_rows=8016, head_rows=256, norm=256)
+SHARD_32 = dict(LLAMA3_8B, n_layers=1, embed_rows=4008, head_rows=128, norm=128)
+INT_VIEWS = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
+
+
+def llama_shard_shapes(n_layers, d, q, kv, ff, vocab, embed_rows, head_rows, norm):
+    """One rank's shard of the Llama parameter tree: ``n_layers`` of the stacked
+    layers, the first ``embed_rows`` of the embedding, ``head_rows`` of the head's
+    leading axis and ``norm`` of the final norm; every other axis at full width."""
+    L = n_layers
+    layers = {"attn_norm": (L, d), "wq": (L, d, q), "wk": (L, d, kv), "wv": (L, d, kv),
+              "wo": (L, q, d), "mlp_norm": (L, d), "w_gate": (L, d, ff), "w_up": (L, d, ff),
+              "w_down": (L, ff, d)}
+    return {"embed": (embed_rows, d), "layers": layers, "final_norm": (norm,),
+            "lm_head": (head_rows, vocab)}
+
+
+def ckpt_state(torch, shapes, seed, device, bf16=True):
+    """A train state on ``device``: f32 parameters of ``shapes`` plus AdamW's ``mu`` and
+    ``nu``, a step counter, and (``bf16``) a bf16 copy of the embedding; values from a
+    generator seeded with ``seed`` on that device."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def make(node):
+        if isinstance(node, dict):
+            return {k: make(v) for k, v in node.items()}
+        return torch.randn(node, generator=gen, device=device)
+
+    state = {"params": make(shapes), "opt": {"mu": make(shapes), "nu": make(shapes)}, "step": 0}
+    if bf16:
+        state["embed_bf16"] = state["params"]["embed"].to(torch.bfloat16)
+    return state
+
+
+def ckpt_leaves(state):
+    """The state's tensors in the order the checkpoint pops them."""
+    from tpu_resiliency_torch.checkpoint.state_dict import tree_flatten
+
+    return [x for x in tree_flatten(state)[0] if hasattr(x, "data_ptr")]
+
+
+def ckpt_step(torch, state, seed):
+    """An optimizer step's worth of in-place updates: ``add_`` of seeded noise to every
+    leaf, and the step counter."""
+    leaves = ckpt_leaves(state)
+    gen = torch.Generator(device=leaves[0].device).manual_seed(seed)
+    for t in leaves:
+        t.add_(torch.randn(t.shape, generator=gen, device=t.device, dtype=t.dtype))
+    state["step"] += 1
+
+
+def ckpt_host_copy(torch, state):
+    """A blocking host copy of every leaf, for checking a save (outside its timing)."""
+    return [t.detach().to("cpu") for t in ckpt_leaves(state)]
+
+
+def ckpt_nbytes(state) -> int:
+    return sum(t.numel() * t.element_size() for t in ckpt_leaves(state))
+
+
+def ckpt_assert_equal(torch, tree, copy, label):
+    """Every leaf of ``tree`` equals ``copy`` bit for bit (compared as integer views)."""
+    leaves = ckpt_leaves(tree)
+    if len(leaves) != len(copy):
+        raise AssertionError(f"{label}: {len(leaves)} leaves, the copy holds {len(copy)}")
+    for i, (a, b) in enumerate(zip(leaves, copy)):
+        iv = getattr(torch, INT_VIEWS[a.element_size()])
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.view(iv), b.to(a.device).view(iv)):
+            raise AssertionError(f"{label}: leaf {i} {tuple(a.shape)} {a.dtype} differs from "
+                                 f"the values at its save")
 
 
 class Smoke:
@@ -1256,6 +1366,354 @@ def restart_path(smoke, rows, names, main_mask, built_faults):
     return loop_launches
 
 
+CKPT_SAVES = (1, 2, 3)  # checkpoint_path (a): iterations, one optimizer step apart
+CKPT_CALLBACK_STEPS, CKPT_CALLBACK_EVERY = 6, 2  # checkpoint_path (c)
+CKPT_STATE_F32_BYTES = 6_022_695_936  # the 1/16 shard's parameters, mu and nu
+CKPT_SHARD_32_BYTES = 3_011_347_968  # each rank's state in checkpoint_path (b)
+#: checkpoint_path (b): one rank of a two-rank job on the one card, a fresh interpreter.
+#: argv: rank, store port, generation, "save" or "load", root, device, shard (JSON).
+CKPT_CHILD = """
+import json, sys, time
+
+rank, port, gen, mode, root = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+import torch
+
+import chip_smoke as cs
+from tpu_resiliency_torch.checkpoint.comm import PeerExchange, StoreComm
+from tpu_resiliency_torch.checkpoint.local_manager import LocalCheckpointManager
+from tpu_resiliency_torch.checkpoint.replication import CliqueReplicationStrategy
+from tpu_resiliency_torch.checkpoint.reshard import TreeLayout
+from tpu_resiliency_torch.checkpoint.state_dict import PyTreeStateDict
+from tpu_resiliency_torch.platform.store import CoordStore
+
+dev = torch.device(sys.argv[6])
+state = cs.ckpt_state(torch, cs.llama_shard_shapes(**json.loads(sys.argv[7])), seed=1000 + rank,
+                      device=dev, bf16=False)
+stores = [CoordStore("127.0.0.1", port, timeout=120.0) for _ in range(2)]
+comm = StoreComm(stores[0], rank, [0, 1], timeout=300.0, generation=gen)
+ex = PeerExchange(stores[1], rank, timeout=300.0)
+ex.start()
+mgr = LocalCheckpointManager(root, rank=rank, comm=comm,
+                             replication=CliqueReplicationStrategy(comm, ex, 1, 2))
+out = {"rank": rank, "state_bytes": cs.ckpt_nbytes(state)}
+if mode == "save":
+    layout = TreeLayout.for_local_tree(state, cs.ckpt_specs(state), {"dp": 2}, [0, 1])
+    cs.synchronize(torch, dev)
+    t0 = time.perf_counter()
+    mgr.save(1, PyTreeStateDict(state), is_async=True, layout=layout)
+    out["foreground_ms"] = (time.perf_counter() - t0) * 1e3
+    cs.ckpt_step(torch, state, seed=1)  # updated in place right after the save
+    mgr.maybe_finalize(blocking=True)
+    out["save_to_finalized_s"] = time.perf_counter() - t0
+    out["staging"] = mgr.staging.stats()
+else:
+    t0 = time.perf_counter()
+    tree, meta = mgr.load_tree(device=dev)
+    cs.synchronize(torch, dev)
+    out["load_s"] = time.perf_counter() - t0
+    cs.ckpt_assert_equal(torch, tree, cs.ckpt_leaves(state), f"rank {rank}'s restore")
+    out.update(iteration=meta["iteration"], equal=True, device=sorted(
+        {str(t.device) for t in cs.ckpt_leaves(tree)}))
+out["held"] = sorted([i.iteration, i.owner] for i in mgr.local_ids())
+mgr.close()
+ex.close()
+for s in stores:
+    s.close()
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def synchronize(torch, device):
+    """Wait for ``device``'s work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def ckpt_specs(state):
+    """The partition spec tree of a state sharded along every leaf's leading axis over
+    ``dp`` (``None`` at the step counter)."""
+    if isinstance(state, dict):
+        return {k: ckpt_specs(v) for k, v in state.items()}
+    return ("dp",) if hasattr(state, "data_ptr") else None
+
+
+def host_memory_available() -> int:
+    """``MemAvailable`` of ``/proc/meminfo``, in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def pinned_block(nbytes: int) -> int:
+    """The bytes torch's caching host allocator pins for a buffer of ``nbytes``
+    (the next power of two)."""
+    return 1 << (nbytes - 1).bit_length()
+
+
+def checkpoint_path(smoke):
+    """Phase 13: local and async checkpointing on the card (see the module's docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    from tpu_resiliency_torch.checkpoint.local_manager import LocalCheckpointManager
+    from tpu_resiliency_torch.checkpoint.state_dict import PyTreeStateDict
+    from tpu_resiliency_torch.integrations import (
+        HierarchicalCheckpointCallback,
+        LoopContext,
+        run_training,
+    )
+    from tpu_resiliency_torch.ops import scoring_kernels as sk
+    from tpu_resiliency_torch.platform.store import KVServer
+    from tpu_resiliency_torch.utils import events
+
+    torch = smoke.torch
+    dev = torch.device("cuda")
+    empty_host_cache = getattr(torch._C, "_host_emptyCache", lambda: None)
+    sk.reset_launches()
+    state = ckpt_state(torch, llama_shard_shapes(**SHARD_16), seed=16, device=dev)
+    nbytes = ckpt_nbytes(state)
+    f32 = sum(t.numel() * 4 for t in ckpt_leaves(state) if t.dtype == torch.float32)
+    if f32 != CKPT_STATE_F32_BYTES:
+        raise AssertionError(f"the 1/16 shard holds {f32} B of f32 state, not "
+                             f"{CKPT_STATE_F32_BYTES}")
+    tmp = tempfile.mkdtemp(prefix="checkpoint-path-")
+    # Held at once: (a)'s three check copies and two pinned staging leases, a
+    # container loaded for the check; on disk: (a)'s three containers and the
+    # blocking engine's.
+    need_host = 4 * nbytes + 2 * pinned_block(nbytes)
+    need_disk = 4 * nbytes
+    free_host, free_disk = host_memory_available(), shutil.disk_usage(tmp).free
+    print(f"checkpoint_path: {free_host} B of host memory available (needs {need_host}), "
+          f"{free_disk} B free on the disk of {tmp} (needs {need_disk})", flush=True)
+    if free_host < need_host or free_disk < need_disk:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise AssertionError(
+            f"checkpoint_path needs {need_host} B of host memory and {need_disk} B of disk "
+            f"in {tmp}; the machine has {free_host} B and {free_disk} B (the state is not "
+            f"shrunk to fit)")
+    timings = []
+
+    def sink(e):
+        if e.kind == "timing" and str(e.payload.get("name", "")).startswith("ckpt."):
+            timings.append(dict(e.payload))
+
+    def named(name, **match):
+        return [t for t in timings if t["name"] == name
+                and all(t.get(k) == v for k, v in match.items())]
+
+    events.add_sink(sink)
+    try:
+        # The link's yardstick: one plain copy_ of the same bytes into one pinned buffer.
+        leaves = ckpt_leaves(state)
+        flat = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        views, off = [], 0
+        for t in leaves:
+            n = t.numel() * t.element_size()
+            views.append(flat[off:off + n].view(t.dtype).view(t.shape))
+            off += n
+        plain_ms = []
+        for _ in range(2):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            for v, t in zip(views, leaves):
+                v.copy_(t, non_blocking=True)
+            b.record()
+            b.synchronize()
+            plain_ms.append(a.elapsed_time(b))
+        del flat, views
+        empty_host_cache()
+
+        # (a) Three pipelined saves one optimizer step apart.
+        mgr = LocalCheckpointManager(os.path.join(tmp, "pipelined"), rank=0, keep=3)
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        copies, fg_host, fg_device, started = {}, [], [], []
+        for it in CKPT_SAVES:
+            copies[it] = ckpt_host_copy(torch, state)  # for the check, outside the window
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            t0 = time.perf_counter()
+            mgr.save(it, PyTreeStateDict(state), is_async=True)
+            fg_host.append((time.perf_counter() - t0) * 1e3)
+            b.record()
+            started.append(t0)
+            ckpt_step(torch, state, seed=it)  # every leaf updated in place right after
+            fg_device.append((a, b))
+        finalized = []
+        deadline = time.monotonic() + 600.0
+        while len(finalized) < len(CKPT_SAVES):
+            done = mgr.maybe_finalize(blocking=False)
+            finalized += [time.perf_counter()] * len(done)
+            if time.monotonic() > deadline:
+                raise AssertionError(f"checkpoint_path (a): {len(finalized)} of "
+                                     f"{len(CKPT_SAVES)} saves finalized in 600 s")
+            time.sleep(0.002)
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        peak_extra = torch.cuda.max_memory_allocated() - mem_before
+        snapshot_ms = [a.elapsed_time(b) for a, b in fg_device]
+        staging = mgr.staging.stats()
+        if abs(mem_after - mem_before) > 1 << 20:
+            raise AssertionError(f"checkpoint_path (a): device memory {mem_before} B before "
+                                 f"the saves, {mem_after} B after finalize")
+        if staging["hits"] < 1 or staging["misses"] > 2:
+            raise AssertionError(f"checkpoint_path (a): staging pool {staging}")
+        load_s = []
+        for it in CKPT_SAVES:
+            t0 = time.perf_counter()
+            tree, meta = mgr.load_tree(it)
+            torch.cuda.synchronize()
+            load_s.append(time.perf_counter() - t0)
+            ckpt_assert_equal(torch, tree, copies.pop(it), f"checkpoint_path (a) save {it}")
+            if meta["iteration"] != it or tree["step"] != it - 1:
+                raise AssertionError(f"checkpoint_path (a) save {it}: meta {meta}, step "
+                                     f"{tree['step']}")
+            del tree
+        mgr.close()
+        del mgr
+        empty_host_cache()
+        d2h = named("ckpt.save.d2h", engine="pipelined")
+        stream = named("ckpt.save.stream", ok=True)
+
+        # The blocking engine on the same state: copy_tensors_to_host, then the save.
+        blocking = LocalCheckpointManager(os.path.join(tmp, "blocking"), rank=0,
+                                          pipelined=False)
+        copy = ckpt_host_copy(torch, state)
+        timings.clear()
+        t0 = time.perf_counter()
+        blocking.save(len(CKPT_SAVES) + 1, PyTreeStateDict(state), is_async=True)
+        blocking_fg = (time.perf_counter() - t0) * 1e3
+        ckpt_step(torch, state, seed=len(CKPT_SAVES) + 1)
+        blocking.maybe_finalize(blocking=True)
+        blocking_e2e = time.perf_counter() - t0
+        tree, _ = blocking.load_tree()
+        ckpt_assert_equal(torch, tree, copy, "checkpoint_path (a) blocking engine")
+        del tree, copy
+        blocking_d2h = named("ckpt.save.d2h")
+        blocking_write = named("ckpt.save.write", ok=True)
+        blocking.close()
+        del blocking
+        shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        empty_host_cache()
+        fg_ratio = statistics.median(fg_host) / blocking_fg
+        if fg_ratio > 0.25:
+            raise AssertionError(f"checkpoint_path (a): the pipelined foreground window is "
+                                 f"{fg_ratio:.4f} of the blocking engine's (limit 0.25)")
+        card_bytes = nbytes  # every leaf lies on the card
+        part_a = {
+            "state_bytes": nbytes, "leaves": len(leaves), "saves": list(CKPT_SAVES),
+            "foreground_ms": fg_host, "foreground_device_ms": snapshot_ms,
+            "save_to_finalized_s": [f - s for f, s in zip(finalized, started)],
+            "d2h_gbps": [t["bytes"] / t["duration_s"] / 1e9 for t in d2h],
+            "d2h_ms": [t["duration_s"] * 1e3 for t in d2h],
+            "plain_copy_ms": plain_ms, "plain_copy_gbps": [nbytes / ms / 1e6 for ms in plain_ms],
+            "stream_gbps": [t["bytes"] / t["duration_s"] / 1e9 for t in stream],
+            "staging": staging, "device_memory_before": mem_before,
+            "device_memory_after": mem_after, "load_s": load_s,
+            "snapshot_cost": {"design": "device clone on the current stream, D2H on a side "
+                              "stream", "extra_device_bytes_per_save": card_bytes,
+                              "peak_extra_device_bytes": peak_extra,
+                              "next_step_delay_ms": snapshot_ms,
+                              "design_a_would_stall_ms": min(plain_ms)},
+            "blocking": {"foreground_ms": blocking_fg, "save_to_finalized_s": blocking_e2e,
+                         "d2h_s": [t["duration_s"] for t in blocking_d2h],
+                         "write_gbps": [t["bytes"] / t["duration_s"] / 1e9
+                                        for t in blocking_write]},
+            "foreground_ratio": fg_ratio,
+        }
+
+        # (b) Two ranks in fresh interpreters, clique replication over the store, rank
+        # 1's disk wiped and restored from rank 0's mirror, then a one-rank reshard.
+        server = KVServer(host="127.0.0.1", port=0)
+        root = os.path.join(tmp, "clique")
+        try:
+            saved = run_children([(CKPT_CHILD, [r, server.port, 0, "save", root, "cuda",
+                                                json.dumps(SHARD_32)]) for r in (0, 1)],
+                                 timeout=600.0)
+            shutil.rmtree(os.path.join(root, "s0", "r1"))
+            loaded = run_children([(CKPT_CHILD, [r, server.port, 1, "load", root, "cuda",
+                                                 json.dumps(SHARD_32)]) for r in (0, 1)],
+                                  timeout=600.0)
+        finally:
+            server.close()
+        for label, outs in (("save", saved), ("load", loaded)):
+            for rc, _, out, err in outs:
+                if rc != 0 or "RESULT" not in out:
+                    raise AssertionError(f"checkpoint_path (b) {label}: a rank failed (rc {rc}):"
+                                         f" {out} {err}")
+        saved = [o[2]["RESULT"][0] for o in saved]
+        loaded = [o[2]["RESULT"][0] for o in loaded]
+        if any(s["state_bytes"] != CKPT_SHARD_32_BYTES for s in saved):
+            raise AssertionError(f"checkpoint_path (b): rank states {saved}")
+        if not all(r["equal"] and r["device"] == ["cuda:0"] and r["iteration"] == 1
+                   for r in loaded):
+            raise AssertionError(f"checkpoint_path (b): restores {loaded}")
+        left = reap_strays(timeout=30.0)
+        if left:
+            raise AssertionError(f"checkpoint_path (b): processes left over: {left}")
+        ranks = [ckpt_state(torch, llama_shard_shapes(**SHARD_32), seed=1000 + r, device=dev,
+                            bf16=False) for r in (0, 1)]
+        reshard = LocalCheckpointManager(root, rank=0, comm=None)
+        t0 = time.perf_counter()
+        tree, meta = reshard.load_resharded_tree(device=dev)
+        torch.cuda.synchronize()
+        reshard_s = time.perf_counter() - t0
+        reshard.close()
+        joined = [torch.cat(pair) for pair in zip(*(ckpt_leaves(s) for s in ranks))]
+        ckpt_assert_equal(torch, tree, joined, "checkpoint_path (b) reshard to one rank")
+        if meta["layout"]["ranks"] != [0]:
+            raise AssertionError(f"checkpoint_path (b): resharded onto {meta['layout']}")
+        part_b = {"ranks": saved, "restores": loaded, "reshard_s": reshard_s,
+                  "reshard_bytes": sum(t.numel() * t.element_size() for t in joined),
+                  "stray_processes_left": len(left)}
+        del tree, joined, ranks
+        shutil.rmtree(root)
+        torch.cuda.empty_cache()
+        empty_host_cache()
+
+        # (c) The callback: the local tier every 2 steps, async, 6 steps of in-place updates.
+        mgr = LocalCheckpointManager(os.path.join(tmp, "callback"), rank=0)
+        cb = HierarchicalCheckpointCallback(local_manager=mgr, local_every=CKPT_CALLBACK_EVERY)
+        step0 = state["step"]
+        t0 = time.perf_counter()
+        run_training(lambda s, i: ckpt_step(torch, s, seed=100 + i) or s, state,
+                     CKPT_CALLBACK_STEPS, callbacks=[cb])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        at_last = ckpt_host_copy(torch, state)
+        ckpt_step(torch, state, seed=999)  # the live state moves on
+        fresh = LoopContext()
+        t0 = time.perf_counter()
+        if not cb.restore_latest(fresh):
+            raise AssertionError("checkpoint_path (c): nothing to restore")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ckpt_assert_equal(torch, fresh.state, at_last, "checkpoint_path (c) callback restore")
+        if fresh.start_step != CKPT_CALLBACK_STEPS or not all(
+                t.is_cuda for t in ckpt_leaves(fresh.state)):
+            raise AssertionError(f"checkpoint_path (c): restored step {fresh.start_step}")
+        part_c = {"steps": CKPT_CALLBACK_STEPS, "local_every": CKPT_CALLBACK_EVERY,
+                  "train_s": train_s, "restore_s": restore_s, "restored_step": fresh.start_step,
+                  "state_step": [step0, fresh.state["step"]], "staging": mgr.staging.stats()}
+        cb.close()
+        del fresh, at_last
+    finally:
+        events.remove_sink(sink)
+        shutil.rmtree(tmp, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+    empty_host_cache()
+    smoke.emit("checkpoint_path", host_memory_available=free_host, free_disk=free_disk,
+               tmp=tmp, needs={"host": need_host, "disk": need_disk},
+               median_kernel_launches=dict(sk.fused_median_weights.launches_by_mode),
+               pipelined=part_a, clique=part_b, callback=part_c)
+
+
 def main() -> int:
     import os
 
@@ -1729,6 +2187,11 @@ def main() -> int:
     group_path(smoke, rows.permute(1, 2, 0), torch.full((R, S), W, dtype=torch.int32, device=dev),
                names)
     path_launches["loop"] += restart_path(smoke, rows, names, flagged(rep1, R), built_faults)
+
+    # 13. checkpoint path ----------------------------------------------------------
+    del rows
+    torch.cuda.empty_cache()
+    checkpoint_path(smoke)
 
     kernels = []
     for mode in sk.MODES:

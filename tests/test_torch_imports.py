@@ -74,15 +74,40 @@ INPROCESS_MODULES = (
 )
 
 
+#: Modules of the checkpoint slice, each imported by the subprocess check.
+CHECKPOINT_MODULES = (
+    "tpu_resiliency_torch.utils.timers",
+    "tpu_resiliency_torch.platform.treecomm",
+    "tpu_resiliency_torch.checkpoint",
+    "tpu_resiliency_torch.checkpoint.format",
+    "tpu_resiliency_torch.checkpoint.state_dict",
+    "tpu_resiliency_torch.checkpoint.hollow_pickle",
+    "tpu_resiliency_torch.checkpoint.staging",
+    "tpu_resiliency_torch.checkpoint.async_core",
+    "tpu_resiliency_torch.checkpoint.async_ckpt",
+    "tpu_resiliency_torch.checkpoint.comm",
+    "tpu_resiliency_torch.checkpoint.replication",
+    "tpu_resiliency_torch.checkpoint.coding",
+    "tpu_resiliency_torch.checkpoint.coding.rs",
+    "tpu_resiliency_torch.checkpoint.coding.delta",
+    "tpu_resiliency_torch.checkpoint.coding.strategy",
+    "tpu_resiliency_torch.checkpoint.coldtier",
+    "tpu_resiliency_torch.checkpoint.reshard",
+    "tpu_resiliency_torch.checkpoint.local_manager",
+    "tpu_resiliency_torch.integrations.checkpoint_callback",
+)
+
+
 def test_importing_every_module_loads_no_jax():
     names = ["tpu_resiliency_torch", *_module_names()]
     assert "tpu_resiliency_torch.ops.scoring_kernels" in names
-    assert set(SLICE_MODULES) <= set(names) and set(INPROCESS_MODULES) <= set(names)
+    assert set(SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES) <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.')\n"
         "             or m == 'tpu_resiliency' or m.startswith('tpu_resiliency.'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -98,7 +123,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     files = {str(p.relative_to(REPO_ROOT).with_suffix("")).replace("/", ".")
              for p in PACKAGE_DIR.rglob("*.py")}
     assert {m if m in files else m + ".__init__"
-            for m in SLICE_MODULES + INPROCESS_MODULES} <= files
+            for m in SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES} <= files
     for path in PACKAGE_DIR.rglob("*.py"):
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -110,7 +135,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                 continue
             for mod in mods:
                 root = mod.split(".")[0]
-                assert root not in ("jax", "jaxlib", "tpu_resiliency"), f"{path}: imports {mod}"
+                assert root not in ("jax", "jaxlib", "ml_dtypes", "tpu_resiliency"), \
+                    f"{path}: imports {mod}"
 
 
 ENTRY_POINTS = {

@@ -34,29 +34,12 @@ ANSWERED = {
 
 #: Reference modules with no counterpart in the port yet, by package.
 NOT_YET_PORTED = (
-    # checkpoint
-    "tpu_resiliency.checkpoint",
-    "tpu_resiliency.checkpoint.async_ckpt",
-    "tpu_resiliency.checkpoint.async_core",
-    "tpu_resiliency.checkpoint.coding",
-    "tpu_resiliency.checkpoint.coding.delta",
-    "tpu_resiliency.checkpoint.coding.rs",
-    "tpu_resiliency.checkpoint.coding.strategy",
-    "tpu_resiliency.checkpoint.coldtier",
-    "tpu_resiliency.checkpoint.comm",
-    "tpu_resiliency.checkpoint.format",
-    "tpu_resiliency.checkpoint.local_manager",
-    "tpu_resiliency.checkpoint.replication",
-    "tpu_resiliency.checkpoint.reshard",
-    "tpu_resiliency.checkpoint.staging",
-    "tpu_resiliency.checkpoint.state_dict",
     # fleet
     "tpu_resiliency.fleet",
     "tpu_resiliency.fleet.aggregator",
     "tpu_resiliency.fleet.registry",
     "tpu_resiliency.fleet.server",
     # integrations
-    "tpu_resiliency.integrations.checkpoint_callback",
     "tpu_resiliency.integrations.ft_callbacks",
     "tpu_resiliency.integrations.orbax_adapter",
     "tpu_resiliency.integrations.preemption",
@@ -83,7 +66,6 @@ NOT_YET_PORTED = (
     # platform
     "tpu_resiliency.platform.compile_cache",
     "tpu_resiliency.platform.ipc",
-    "tpu_resiliency.platform.treecomm",
     # telemetry
     "tpu_resiliency.telemetry.remediation",
     "tpu_resiliency.telemetry.watchtower",
@@ -104,7 +86,6 @@ NOT_YET_PORTED = (
     "tpu_resiliency.utils.goodput",
     "tpu_resiliency.utils.metrics",
     "tpu_resiliency.utils.stackdump",
-    "tpu_resiliency.utils.timers",
     "tpu_resiliency.utils.timeseries",
     # watchdog
     "tpu_resiliency.watchdog.config",
@@ -168,6 +149,30 @@ INPROCESS_SLICE = (
 )
 
 
+#: The modules of the checkpoint slice and the support it stands on: each has its
+#: counterpart.
+CHECKPOINT_SLICE = (
+    "tpu_resiliency.utils.timers",
+    "tpu_resiliency.platform.treecomm",
+    "tpu_resiliency.checkpoint",
+    "tpu_resiliency.checkpoint.format",
+    "tpu_resiliency.checkpoint.state_dict",
+    "tpu_resiliency.checkpoint.staging",
+    "tpu_resiliency.checkpoint.async_core",
+    "tpu_resiliency.checkpoint.async_ckpt",
+    "tpu_resiliency.checkpoint.comm",
+    "tpu_resiliency.checkpoint.replication",
+    "tpu_resiliency.checkpoint.coding",
+    "tpu_resiliency.checkpoint.coding.rs",
+    "tpu_resiliency.checkpoint.coding.delta",
+    "tpu_resiliency.checkpoint.coding.strategy",
+    "tpu_resiliency.checkpoint.coldtier",
+    "tpu_resiliency.checkpoint.reshard",
+    "tpu_resiliency.checkpoint.local_manager",
+    "tpu_resiliency.integrations.checkpoint_callback",
+)
+
+
 def _answered(package: str) -> dict[str, str]:
     """ANSWERED's reference names exported by ``package``, mapped to their answers."""
     return {name.rsplit(".", 1)[1]: answer for name, answer in ANSWERED.items()
@@ -228,6 +233,12 @@ def test_the_inprocess_slice_is_ported(module):
     assert has_counterpart(module) and module not in NOT_YET_PORTED
 
 
+@pytest.mark.parametrize("module", CHECKPOINT_SLICE)
+def test_the_checkpoint_slice_is_ported(module):
+    assert module in reference_modules()
+    assert has_counterpart(module) and module not in NOT_YET_PORTED
+
+
 def test_renamed_modules_exist_on_both_sides():
     for ref, port in RENAMED.items():
         assert ref in reference_modules()
@@ -252,12 +263,20 @@ def test_the_port_exports_the_ported_integration_names():
     not_yet = {
         "FaultToleranceCallback": "tpu_resiliency.integrations.ft_callbacks",
         "FaultToleranceSectionsCallback": "tpu_resiliency.integrations.ft_callbacks",
-        "HierarchicalCheckpointCallback": "tpu_resiliency.integrations.checkpoint_callback",
         "OrbaxCheckpointCallback": "tpu_resiliency.integrations.orbax_adapter",
         "PreemptionCheckpointCallback": "tpu_resiliency.integrations.preemption",
     }
     assert all(module in NOT_YET_PORTED for module in not_yet.values())
     assert sorted(set(ref.__all__) - set(port.__all__)) == sorted(not_yet)
+
+
+def test_the_port_exports_every_reference_checkpoint_name():
+    import tpu_resiliency.checkpoint as ref
+    import tpu_resiliency_torch.checkpoint as port
+
+    assert not _answered("tpu_resiliency.checkpoint")
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    assert all(callable(getattr(port, name)) for name in port.__all__)
 
 
 def test_the_port_exports_every_reference_inprocess_name_or_answers_it():

@@ -19,6 +19,11 @@ device faults as CUDA kernels (``csrc/faults.cu`` behind
 ``inprocess.tools.inject_fault``), and copies of the store, framing, chaos, flight
 recorder, tracing and state-machine modules they stand on.
 
+The checkpoint slice: ``checkpoint`` (state dicts flattened in ``jax.tree_util``'s
+order, pinned staging, the pipelined and blocking save engines, clique replication,
+coding, the cold tier, the integrity ladder and reshard; containers interchange byte
+for byte with the JAX package's) and ``integrations.checkpoint_callback``.
+
 Entry points run on the CUDA card by default and raise when there is none; pass
 ``device="cpu"`` to run the plain PyTorch path on the CPU.
 """

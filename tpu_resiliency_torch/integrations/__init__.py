@@ -1,7 +1,9 @@
-"""Training-loop callbacks (the ``ptl_resiliency`` analogue): the loop protocol and
-the straggler-detection callback. The fault-tolerance, checkpoint and preemption
-callbacks of the JAX package are not ported yet (see ROADMAP.md)."""
+"""Training-loop callbacks (the ``ptl_resiliency`` analogue): the loop protocol, the
+straggler-detection callback and the hierarchical checkpoint callback. The
+fault-tolerance and preemption callbacks of the JAX package are not ported yet (see
+ROADMAP.md)."""
 
+from tpu_resiliency_torch.integrations.checkpoint_callback import HierarchicalCheckpointCallback
 from tpu_resiliency_torch.integrations.loop import (
     Callback,
     CallbackRunner,
@@ -18,4 +20,5 @@ __all__ = [
     "StopTraining",
     "run_training",
     "StragglerDetectionCallback",
+    "HierarchicalCheckpointCallback",
 ]

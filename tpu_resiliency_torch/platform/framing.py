@@ -34,44 +34,6 @@ import socket
 import struct
 from typing import Any, Optional, Sequence
 
-# The bulk-frame checksum: a copy of the reference container format's choice
-# (``checkpoint/format.py:128-167``), which the port does not hold yet. CRC32C
-# (Castagnoli) via google_crc32c when the image ships it; stdlib zlib.crc32 (IEEE)
-# otherwise. A frame names its algorithm, so a receiver with the other one skips
-# the check instead of raising a false alarm.
-try:
-    import google_crc32c as _crc_impl
-
-    CRC_ALGO = "crc32c"
-    #: google_crc32c's C binding only accepts ``bytes``; chunk the copy so the
-    #: transient allocation stays bounded at any payload size.
-    _CRC_CHUNK = 1 << 18
-
-    def crc32c(data, crc: int = 0) -> int:
-        """Streaming checksum update over any bytes-like."""
-        if isinstance(data, bytes):
-            return _crc_impl.extend(crc, data)
-        view = memoryview(data)
-        if view.ndim != 1 or view.itemsize != 1:
-            view = view.cast("B")
-        for i in range(0, view.nbytes, _CRC_CHUNK):
-            crc = _crc_impl.extend(crc, bytes(view[i : i + _CRC_CHUNK]))
-        return crc
-
-except ImportError:  # pragma: no cover - exercised only on hosts without it
-    import zlib as _crc_impl
-
-    CRC_ALGO = "crc32"
-
-    def crc32c(data, crc: int = 0) -> int:
-        """Streaming checksum update (stdlib CRC32 fallback)."""
-        if not isinstance(data, (bytes, bytearray, memoryview)):
-            data = memoryview(data)
-        if isinstance(data, memoryview) and (data.ndim != 1 or data.itemsize != 1):
-            data = data.cast("B")
-        return _crc_impl.crc32(data, crc) & 0xFFFFFFFF
-
-
 LEN = struct.Struct("!Q")
 DEFAULT_MAX_FRAME = 64 * 1024 * 1024
 
@@ -323,6 +285,11 @@ def recv_any(
         payload = view[:nbytes]
         recv_exact_into(sock, payload)
         if "crc32c" in header:
+            # Layering note: the checksum implementation lives with the
+            # container format (one algo tag for disk and wire); import
+            # lazily, only for frames that actually carry a CRC.
+            from tpu_resiliency_torch.checkpoint.format import CRC_ALGO, crc32c
+
             if header.get("crc_algo", CRC_ALGO) == CRC_ALGO and crc32c(
                 payload
             ) != int(header["crc32c"]):
