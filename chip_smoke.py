@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's straggler-telemetry, in-process restart and checkpoint
-paths on one CUDA card.
+"""Drive the PyTorch port's straggler-telemetry, in-process restart, checkpoint and
+in-job restart paths on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA card
 and the CUDA toolkit (``nvcc``), builds the port's three window-reduction kernels
@@ -159,9 +159,41 @@ printing one JSON line that carries the card's name and power limit:
    bit-identical; then ``load_resharded_tree`` of the two containers on rank 0's disk
    onto one rank must equal their concatenation; no process may be left. (c)
    ``run_training`` with ``HierarchicalCheckpointCallback`` (local tier every 2 steps,
-   async) over 6 steps of (a)'s state with in-place updates; ``restore_latest`` must
-   bring back step 6's values on the card. The checkpoint path launches none of the
+   async) over 4 steps of (a)'s state with in-place updates; ``restore_latest`` must
+   bring back step 4's values on the card (6 steps before ``injob_path`` was added; cut
+   to keep the script within its time). The checkpoint path launches none of the
    median kernels; their counts are zeroed before it and printed.
+14. ``injob_path``: fault tolerance and the in-job restart on the card. Each scenario
+   is a fresh process tree: the port's launcher (``python -m
+   tpu_resiliency_torch.launcher.launch --nproc-per-node 1 --monitor-interval 0.1
+   --rdzv-last-call 0.2``) as a subprocess, its processes sampled on a thread (which
+   hold a ``/dev/nvidia<N>``, and ``nvidia-smi``'s compute pids and MiB) and reaped
+   after it. (a) ``tpu_resiliency_torch.examples.resilient_training`` at config 4's
+   full width (a push per step, a ``loop`` report every 100) carrying the 1/32
+   Llama-3-8B shard of ``checkpoint_path`` (b) (3,011,347,968 B), with the FT,
+   straggler and checkpoint callbacks: a local checkpoint every 100 steps; at step 150
+   of round 0, once the step-100 container is finalized, ``DEVICE_HANG``, so the
+   heartbeats stop (``--ft-param-rank_heartbeat_timeout 5``,
+   ``workload_check_interval 0.5``, no stack-dump grace). The monitor must send its
+   kill between 5 and 6.5 s after the last heartbeat, and the worker be gone within
+   the agent's 15 s grace after it; round 1, a cold respawn, must restore
+   the step-100 state bit-identical (as integer views) to a replay of the seed, run to
+   step 300 with the straggler masks of an uninterrupted run, and run no ``nvcc``.
+   Printed: the restart cut from the event stream into detect, kill signal, death,
+   teardown, rendezvous, spawn and startup, CUDA context and kernel load, restore and
+   first step;
+   the dead worker's card MiB and how long its pid stayed on ``nvidia-smi``; round 1's
+   first and median step. (b) The same with ``--warm-spares 1 --warm-spare-warmup
+   runtime``: round 1 must be the promoted spare, which held no card before its
+   promotion. (c) ``tpu_resiliency_torch.examples.layered_restart`` at config 4 under
+   the Wrapper: ``DEVICE_ERROR`` at step 150 of round 0; ``CudaHealthCheck`` must fail,
+   the process exit with ``HealthCheckError``, and round 1, a new process, complete with
+   the uninterrupted run's step-100 mask; the ``[NestedRestarter]`` lines must name
+   both layers. In every scenario no agent, monitor or spare may hold the card.
+   (d) ``CudaRuntimeCheck`` in this process: healthy; unhealthy past a memory-pressure
+   threshold set just below the pressure an allocation makes; unhealthy with
+   ``expect_devices`` one past the count. The workers' ``loop`` launches go on the
+   ``kernels`` line.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
@@ -1367,7 +1399,7 @@ def restart_path(smoke, rows, names, main_mask, built_faults):
 
 
 CKPT_SAVES = (1, 2, 3)  # checkpoint_path (a): iterations, one optimizer step apart
-CKPT_CALLBACK_STEPS, CKPT_CALLBACK_EVERY = 6, 2  # checkpoint_path (c)
+CKPT_CALLBACK_STEPS, CKPT_CALLBACK_EVERY = 4, 2  # checkpoint_path (c)
 CKPT_STATE_F32_BYTES = 6_022_695_936  # the 1/16 shard's parameters, mu and nu
 CKPT_SHARD_32_BYTES = 3_011_347_968  # each rank's state in checkpoint_path (b)
 #: checkpoint_path (b): one rank of a two-rank job on the one card, a fresh interpreter.
@@ -1676,7 +1708,7 @@ def checkpoint_path(smoke):
         torch.cuda.empty_cache()
         empty_host_cache()
 
-        # (c) The callback: the local tier every 2 steps, async, 6 steps of in-place updates.
+        # (c) The callback: the local tier every 2 steps, async, 4 steps of in-place updates.
         mgr = LocalCheckpointManager(os.path.join(tmp, "callback"), rank=0)
         cb = HierarchicalCheckpointCallback(local_manager=mgr, local_every=CKPT_CALLBACK_EVERY)
         step0 = state["step"]
@@ -1712,6 +1744,466 @@ def checkpoint_path(smoke):
                tmp=tmp, needs={"host": need_host, "disk": need_disk},
                median_kernel_launches=dict(sk.fused_median_weights.launches_by_mode),
                pipelined=part_a, clique=part_b, callback=part_c)
+
+
+INJOB_STEPS, INJOB_FAULT_STEP, INJOB_CKPT_EVERY = 300, 150, 100  # injob_path (a), (b)
+INJOB_HB_TIMEOUT_S, INJOB_CHECK_INTERVAL_S = 5.0, 0.5  # the monitor's heartbeat settings
+INJOB_TERM_GRACE_S = 15.0  # the agent's term_grace: a killed worker must be gone by then
+LAYERED_STEPS, LAYERED_FAIL_STEP = 200, 150  # injob_path (c)
+#: The launcher's flags in every injob_path scenario; the monitor kills at once on a
+#: hang verdict (no stack-dump grace), so hang to kill is held to the timeout's window.
+INJOB_LAUNCHER = ["--nproc-per-node", "1", "--monitor-interval", "0.1", "--rdzv-last-call",
+                  "0.2", "--rdzv-endpoint", "127.0.0.1:0", "--max-restarts", "1"]
+INJOB_FT = ["--ft-param-rank_heartbeat_timeout", str(INJOB_HB_TIMEOUT_S),
+            "--ft-param-workload_check_interval", str(INJOB_CHECK_INTERVAL_S),
+            "--ft-param-stack_dump_grace", "0"]
+
+
+def card_pids() -> dict[int, int]:
+    """``{pid: used MiB}`` of the processes ``nvidia-smi`` lists on the card (none
+    where there is no ``nvidia-smi``, as in a CPU rehearsal)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=30).stdout
+    except FileNotFoundError:
+        return {}
+    pids = {}
+    for line in out.strip().splitlines():
+        pid, _, mib = line.partition(",")
+        if pid.strip().isdigit():
+            pids[int(pid)] = int(mib.strip()) if mib.strip().isdigit() else 0
+    return pids
+
+
+def holds_card(pid: int) -> bool:
+    """Whether ``pid`` has a card's device file open (``/dev/nvidia<N>``: a CUDA
+    context; the control and UVM files alone are not one)."""
+    try:
+        fds = Path(f"/proc/{pid}/fd")
+        for fd in fds.iterdir():
+            target = str(fd.readlink())
+            if target.startswith("/dev/nvidia") and target[len("/dev/nvidia"):].isdigit():
+                return True
+    except OSError:
+        pass
+    return False
+
+
+class CardWatch:
+    """Samples, on a thread, every process this run started (``stray_processes``):
+    its command line, when it was first and last seen, when it held the card (a
+    ``/dev/nvidia<N>`` open), and ``nvidia-smi``'s pids and their MiB (every other
+    sample, as that call is slower); and the card's used bytes (``used_bytes``)."""
+
+    def __init__(self, interval: float = 0.2, used_bytes=None):
+        import threading
+
+        self.interval = interval
+        self.used_bytes = used_bytes  # () -> the card's used bytes, sampled each tick
+        self.memory: list[tuple[float, int]] = []
+        self.seen: dict[int, dict] = {}
+        self.smi_lists_pids = False
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="card-watch", daemon=True)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(30)
+
+    def _note(self, pid, now, **flags):
+        s = self.seen.setdefault(pid, {"first": now, "last": now, "card_first": None,
+                                       "card_last": None, "smi_first": None,
+                                       "smi_last": None, "mib": 0, "cmdline": ""})
+        s["last"] = now
+        if not s["cmdline"]:
+            try:
+                s["cmdline"] = Path(f"/proc/{pid}/cmdline").read_bytes().replace(
+                    b"\0", b" ").decode(errors="replace")
+                s["ppid"] = int(Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                pass
+        for key in ("card", "smi"):
+            if flags.get(key):
+                s[f"{key}_first"] = s[f"{key}_first"] or now
+                s[f"{key}_last"] = now
+        s["mib"] = max(s["mib"], flags.get("mib", 0))
+
+    def _run(self):
+        import os
+
+        tick = 0
+        while not self._stop.is_set():
+            now = time.time()
+            if self.used_bytes is not None:
+                self.memory.append((now, self.used_bytes()))
+            for pid in stray_processes():
+                self._note(pid, now, card=holds_card(pid))
+            if tick % 2 == 0:
+                listed = card_pids()
+                now = time.time()
+                self.smi_lists_pids |= os.getpid() in listed
+                for pid, mib in listed.items():
+                    if pid in self.seen or pid == os.getpid():
+                        self._note(pid, now, smi=True, mib=mib)
+            tick += 1
+            self._stop.wait(self.interval)
+
+
+def run_launcher(tag, root, launcher_args, worker_argv, timeout):
+    """One fresh process tree: the port's launcher as a subprocess (its own session),
+    stdout and stderr to files, watched by a :class:`CardWatch`. Returns its return
+    code, events, output, the watch and the launcher's pid. Every process it started
+    is reaped afterwards."""
+    import os
+    import signal
+
+    here = Path(__file__).resolve().parent
+    events = root / f"{tag}.events.jsonl"
+    out_path, err_path = root / f"{tag}.out", root / f"{tag}.err"
+    env = dict(os.environ, PYTHONPATH=str(here), TPU_RESILIENCY_LOG_LEVEL="INFO")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "TPU_RESILIENCY_STORE_PORT",
+              "TPU_RESILIENCY_STORE_HOST", "CUDA_VISIBLE_DEVICES"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "tpu_resiliency_torch.launcher.launch", *launcher_args,
+           "--events-file", str(events), "--run-dir", str(root / f"{tag}.run"), *worker_argv]
+    used = None
+    if "torch" in sys.modules and sys.modules["torch"].cuda.is_initialized():
+        torch = sys.modules["torch"]
+
+        def used():
+            free, total = torch.cuda.mem_get_info()
+            return total - free
+
+    watch = CardWatch(used_bytes=used).start()
+    t0 = time.time()
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        p = subprocess.Popen(cmd, stdout=out, stderr=err, env=env, cwd=here,
+                             start_new_session=True)
+        try:
+            rc = p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            rc = "timeout"
+    seconds = time.time() - t0
+    killed = reap_strays(timeout=10.0)
+    watch.stop()
+    recs = [json.loads(ln) for ln in events.read_text().splitlines()] if events.exists() else []
+    return {"rc": rc, "events": recs, "out": out_path.read_text(), "err": err_path.read_text(),
+            "watch": watch, "agent": p.pid, "seconds": seconds, "strays_killed": len(killed)}
+
+
+def results_of(run) -> list[dict]:
+    return [json.loads(ln[len("RESULT "):]) for ln in run["out"].splitlines()
+            if ln.startswith("RESULT ")]
+
+
+def first(recs, kind, **match):
+    for e in recs:
+        if e.get("kind") == kind and all(e.get(k) == v for k, v in match.items()):
+            return e
+    raise AssertionError(f"no {kind} event {match or ''} in the run's stream")
+
+
+def card_holders(run, worker_pids, promoted=None) -> dict:
+    """Which processes of ``run`` held a CUDA context, by role: those ``nvidia-smi``
+    listed where it lists this run's pids, else those with a ``/dev/nvidia<N>`` open.
+    Fails if any but a worker did, or if ``promoted`` (a spare's pid and the time of its
+    promotion) did before its promotion.
+    Processes with the device files open but no context are reported beside."""
+    watch, agent = run["watch"], run["agent"]
+    key = "smi" if watch.smi_lists_pids else "card"
+    roles = {}
+    for pid, s in watch.seen.items():
+        if pid in worker_pids:
+            role = "worker"
+        elif pid == agent:
+            role = "agent"
+        elif "tpu_resiliency_torch.launcher.park" in s["cmdline"]:
+            role = "spare"
+        elif "tpu_resiliency_torch.launcher.launch" in s["cmdline"]:
+            role = "monitor" if s.get("ppid") == agent else "launcher"
+        elif "tpu_resiliency_torch.examples" in s["cmdline"]:
+            role = "wrapper_monitor"  # forked from a worker: a worker's cmdline, no card
+        else:
+            role = "other"
+        roles[pid] = role
+        held = s[f"{key}_first"]
+        detail = (f"{role} pid {pid} ({s['cmdline'][:100]}): first seen {s['first']:.3f}, "
+                  f"context (nvidia-smi) from {s['smi_first']}, device files from "
+                  f"{s['card_first']}, promoted {promoted}")
+        if role == "wrapper_monitor" and held is not None and held == s["card_first"]:
+            # A fork of a worker that holds a context inherits its device files, and
+            # the daemonized monitor closes every inherited descriptor at once: a
+            # sample may catch them, but no context, and only in that first moment.
+            if s["card_last"] - s["card_first"] > 1.0:
+                raise AssertionError(f"a Wrapper monitor kept its worker's device files: "
+                                     f"{detail}, until {s['card_last']:.3f}")
+        elif held is not None and role != "worker":
+            raise AssertionError(f"a process other than a worker held the card: {detail}")
+        if held is not None and promoted and pid == promoted[0] and held < promoted[1]:
+            raise AssertionError(f"a spare held the card before its promotion: {detail}")
+    counts = {}
+    for role in roles.values():
+        counts[role] = counts.get(role, 0) + 1
+    return {"processes_by_role": counts,
+            "other_processes": sorted({watch.seen[p]["cmdline"][:100] for p, r in roles.items()
+                                       if r == "other"}),
+            "context_holders_by": "nvidia-smi" if key == "smi" else "device files",
+            "context_holders": sorted(f"{roles[p]} {p}" for p, s in watch.seen.items()
+                                      if s[f"{key}_first"] is not None
+                                      and roles[p] != "wrapper_monitor"),
+            "device_files_open_s": {f"{roles[p]} {p}": s["card_last"] - s["card_first"]
+                                    for p, s in watch.seen.items() if s["card_first"]},
+            "nvidia_smi_lists_pids": watch.smi_lists_pids}
+
+
+def released_memory(memory, kill, until) -> dict:
+    """The card memory a killed worker held and how long after the kill it was given
+    back, from the card's used bytes sampled between the kill and ``until`` (the
+    next worker's imports, before its context): the drop from the last sample before
+    the kill to the lowest after it, and the first sample within 64 MiB of that low."""
+    before = [used for t, used in memory if t <= kill]
+    after = [(t, used) for t, used in memory if kill < t <= until]
+    if not before or not after:
+        return {"dead_worker_card_bytes": "not measured",
+                "kill_to_card_memory_released_s": "not measured"}
+    low = min(used for _, used in after)
+    released = next(t for t, used in after if used <= low + (64 << 20))
+    return {"dead_worker_card_bytes": before[-1] - low,
+            "kill_to_card_memory_released_s": released - kill}
+
+
+def restart_segments(recs, dead_pid, new_pid, last_hb) -> dict:
+    """The restart of ``dead_pid`` by ``new_pid``, cut from the run's event stream,
+    in seconds."""
+    stage = {e["stage"]: e["t"] for e in recs
+             if e.get("kind") == "worker_stage" and e.get("pid") == new_pid}
+    detected = first(recs, "hang_detected", p_pid=dead_pid)["ts"]
+    killed = first(recs, "kill_ladder", p_pid=dead_pid, step="SIGKILL")["ts"]
+    failed = first(recs, "failure_detected", round=0)["ts"]
+    requested = first(recs, "restart_requested", round=0)["ts"]
+    placed = first(recs, "rendezvous_round", round=1)["ts"]
+    seg = {
+        "detect": detected - last_hb,
+        "kill_signal": killed - detected,
+        "death": failed - killed,  # the killed process's exit, as the agent's poll sees it
+        "teardown": requested - failed,
+        "rendezvous": placed - requested,
+        "spawn_and_startup": stage["imports"] - placed,
+        "cuda_context_and_kernel_load": stage["device"] - stage["imports"],
+        "restore": stage["restored"] - stage["device"],
+        "first_step": stage["first_step"] - stage["restored"],
+    }
+    promoted = [e for e in recs if e.get("kind") == "worker_promoted" and e.get("round") == 1]
+    seg["spawn_and_startup_split"] = {
+        "to_promotion": (promoted[0]["ts"] - placed) if promoted else "not promoted",
+        "interpreter_and_package_import": stage["entry"] - placed,
+        "example_imports": stage["imports"] - stage["entry"],
+    }
+    seg["total_last_heartbeat_to_first_step"] = stage["first_step"] - last_hb
+    return seg
+
+
+def shard_nbytes(shapes) -> int:
+    """Bytes of a tree of f32 leaf shapes."""
+    if isinstance(shapes, dict):
+        return sum(shard_nbytes(v) for v in shapes.values())
+    return 4 * int(np.prod(shapes))
+
+
+def hang_scenario(tag, root, shard_shapes, extra_launcher=(), worker_extra=(), kill_slack_s=1.0):
+    """injob_path (a) and (b): the resilient-training example at config 4 with the
+    1/32 Llama shard, a device hang in round 0, a respawn that resumes from step 100.
+    ``worker_extra``: worker flags that override these (a CPU rehearsal's device and
+    widths); ``kill_slack_s``: how long past its next check the monitor may take to
+    kill (a CPU rehearsal shares its cores with other work)."""
+    import shutil
+
+    worker = ["-m", "tpu_resiliency_torch.examples.resilient_training",
+              "--steps", str(INJOB_STEPS), "--report-every", str(REPORT_INTERVAL),
+              "--ckpt-every", str(INJOB_CKPT_EVERY), "--fault", "hang",
+              "--fault-step", str(INJOB_FAULT_STEP), "--ranks", str(R), "--signals", str(S),
+              "--window", str(W), "--ckpt-dir", str(root / f"{tag}.ckpt"), "--verify",
+              "--shard-shapes", json.dumps(shard_shapes), *worker_extra]
+    run = run_launcher(tag, root, [*INJOB_LAUNCHER, *INJOB_FT, *extra_launcher], worker,
+                       timeout=240.0)
+    shutil.rmtree(root / f"{tag}.ckpt", ignore_errors=True)
+    recs = run["events"]
+    rounds = sorted({e["round"] for e in recs if e.get("kind") == "rendezvous_round"})
+    if run["rc"] != 0 or rounds != [0, 1]:
+        raise AssertionError(f"injob {tag}: rc {run['rc']}, rounds {rounds}:\n"
+                             f"{run['err'][-4000:]}")
+    fault = first(recs, "fault")
+    dead = fault["pid"]
+    hang = first(recs, "hang_detected", p_pid=dead)
+    if hang.get("via") != "heartbeat":
+        raise AssertionError(f"injob {tag}: the hang was detected via {hang.get('via')}")
+    last_hb = hang["ts"] - hang["blocked_s"]
+    kill = first(recs, "kill_ladder", p_pid=dead, step="SIGKILL")["ts"]
+    death = first(recs, "failure_detected", round=0)["ts"]
+    hang_to_kill = kill - last_hb
+    window = (INJOB_HB_TIMEOUT_S, INJOB_HB_TIMEOUT_S + INJOB_CHECK_INTERVAL_S + kill_slack_s)
+    if not window[0] <= hang_to_kill <= window[1]:
+        raise AssertionError(f"injob {tag}: last heartbeat to the kill {hang_to_kill:.3f} s, "
+                             f"outside {window}")
+    if death - kill > INJOB_TERM_GRACE_S:
+        raise AssertionError(f"injob {tag}: the killed worker lived {death - kill:.3f} s on")
+    (res,) = results_of(run)
+    new_pid = [e["pid"] for e in recs if e.get("kind") == "worker_stage"
+               and e.get("stage") == "restored"][0]
+    checks = {"restored_equal": True, "masks_equal_uninterrupted": True,
+              "slow_ranks_flagged": True, "nvcc_runs": 0, "start_step": INJOB_CKPT_EVERY,
+              "final_step": INJOB_STEPS}
+    bad = {k: res.get(k) for k, v in checks.items() if res.get(k) != v}
+    if bad or res.get("restored_bytes", 0) < shard_nbytes(shard_shapes):
+        raise AssertionError(f"injob {tag}: round 1 {bad}, restored {res.get('restored_bytes')} "
+                             f"B: {res}")
+    round0_loop = max(e["loop_launches"] for e in recs
+                      if e.get("kind") == "report" and e.get("pid") == dead)
+    on_card = "cpu" not in worker_extra  # a CPU rehearsal launches no kernel
+    if on_card and (round0_loop < 1 or res["launches"]["loop"] < 1):
+        raise AssertionError(f"injob {tag}: loop launches {round0_loop} and {res['launches']}")
+    promoted = [e for e in recs if e.get("kind") == "worker_promoted" and e.get("round") == 1]
+    holders = card_holders(run, {dead, new_pid},
+                           promoted=(new_pid, promoted[0]["ts"]) if promoted else None)
+    seen = run["watch"].seen
+    dead_seen = seen.get(dead, {})
+    new_stages = {e["stage"]: e["t"] for e in recs
+                  if e.get("kind") == "worker_stage" and e.get("pid") == new_pid}
+    freed = released_memory(run["watch"].memory, kill, new_stages["imports"])
+    round0_first = [e["seconds"] for e in recs if e.get("kind") == "worker_stage"
+                    and e.get("stage") == "first_step" and e.get("pid") == dead]
+    fields = {
+        "returncode": run["rc"], "rounds": rounds, "seconds": run["seconds"],
+        "hang_step": fault["step"], "checkpoint_at_hang": fault["checkpoint"],
+        "last_heartbeat_to_kill_s": hang_to_kill, "limit_s": window,
+        "kill_to_death_s": death - kill, "last_heartbeat_to_death_s": death - last_hb,
+        "segments_s": restart_segments(recs, dead, new_pid, last_hb),
+        "dead_worker_card_mib_by_nvidia_smi": dead_seen.get("mib") or "not measured",
+        "kill_to_pid_off_nvidia_smi_s": (dead_seen["smi_last"] - kill)
+        if dead_seen.get("smi_last") else "not measured",
+        "kill_to_device_files_closed_s": (dead_seen["card_last"] - kill)
+        if dead_seen.get("card_last") else "not measured",
+        **freed,
+        "round0_first_step_ms": round0_first[0] * 1e3 if round0_first else "not measured",
+        "round1": {k: res[k] for k in ("start_step", "final_step", "restored_equal",
+                                       "restored_bytes", "masks_equal_uninterrupted",
+                                       "nvcc_runs", "first_step_ms", "step_ms_median")},
+        "ranks_flagged_per_report": {k: len(v) for k, v in res["masks"].items()},
+        "loop_launches": {"round0": round0_loop, "round1": res["launches"]["loop"]},
+        "promoted": bool(promoted), **holders, "strays_killed": run["strays_killed"],
+    }
+    return fields, round0_loop + res["launches"]["loop"], res["masks"]
+
+
+def layered_scenario(root, masks, worker_extra=()):
+    """injob_path (c): a sticky device error under the Wrapper; the health check fails,
+    the process exits and the launcher's respawn completes in a new context."""
+    worker = ["-m", "tpu_resiliency_torch.examples.layered_restart", "--fault", "device-error",
+              "--fault-rank", "0", "--steps", str(LAYERED_STEPS), "--fail-step",
+              str(LAYERED_FAIL_STEP), "--report-every", str(REPORT_INTERVAL), "--ranks", str(R),
+              "--signals", str(S), "--window", str(W), *worker_extra]
+    run = run_launcher("layered", root, [*INJOB_LAUNCHER, "--no-ft-monitors"], worker,
+                       timeout=180.0)
+    recs = run["events"]
+    rounds = sorted({e["round"] for e in recs if e.get("kind") == "rendezvous_round"})
+    if run["rc"] != 0 or rounds != [0, 1]:
+        raise AssertionError(f"injob layered: rc {run['rc']}, rounds {rounds}:\n"
+                             f"{run['err'][-4000:]}")
+    failed = first(recs, "worker_failed", round=0)
+    log = run["out"] + run["err"]
+    if "HealthCheckError" not in failed.get("detail", ""):
+        raise AssertionError(f"injob layered: round 0 did not end in HealthCheckError: {failed}")
+    layers = {name: f"[NestedRestarter] name=[{name}]" in log for name in ("InJob", "InProcess")}
+    (res,) = results_of(run)
+    if not all(layers.values()) or res["round"] != 1 or res["iterations"] != [0]:
+        raise AssertionError(f"injob layered: layers {layers}, round 1 {res}")
+    on_card = "cpu" not in worker_extra  # a CPU rehearsal launches no kernel
+    if res["flagged"] != masks[str(REPORT_INTERVAL)] or (on_card and res["launches"]["loop"] < 1):
+        raise AssertionError(f"injob layered: round 1 flags {res['flagged']}, the uninterrupted "
+                             f"run's step {REPORT_INTERVAL} {masks[str(REPORT_INTERVAL)]}")
+    # The launcher's children; the Wrapper's monitor processes (double-forked from
+    # them) run the same command line but must hold no card.
+    worker_pids = {p for p, s in run["watch"].seen.items()
+                   if s.get("ppid") == run["agent"] and "examples.layered_restart" in s["cmdline"]}
+    holders = card_holders(run, worker_pids)
+    res["ranks_flagged"] = len(res.pop("flagged"))
+    return {"returncode": run["rc"], "rounds": rounds, "seconds": run["seconds"],
+            "round0_failure": failed["detail"].splitlines()[0],
+            "nested_restarter_layers": layers, "round1": res, **holders}, \
+        res["launches"]["loop"]
+
+
+def runtime_check_on_card(torch):
+    """injob_path (d): ``CudaRuntimeCheck`` healthy; past a pressure threshold set just
+    below the pressure an allocation makes; and with ``expect_devices`` one past the
+    count."""
+    from tpu_resiliency_torch.watchdog import CudaRuntimeCheck
+
+    out = {"healthy": CudaRuntimeCheck()()}
+    count = torch.cuda.device_count()
+    check = CudaRuntimeCheck(expect_devices=count + 1)
+    out["expect_devices_plus_one"] = (check(), check.last_failure)
+    free, total = torch.cuda.mem_get_info(0)
+    block = torch.empty(int(free * 0.5), dtype=torch.uint8, device="cuda:0")
+    free_after, _ = torch.cuda.mem_get_info(0)
+    pressure = 1.0 - free_after / total
+    check = CudaRuntimeCheck(hbm_usage_threshold=pressure - 0.01)
+    out["pressure"] = pressure
+    out["below_pressure"] = (check(), check.last_failure)
+    out["above_pressure"] = CudaRuntimeCheck(hbm_usage_threshold=pressure + 0.01)()
+    del block
+    torch.cuda.empty_cache()
+    if not (out["healthy"] and out["above_pressure"] and out["expect_devices_plus_one"][0] is False
+            and out["below_pressure"][0] is False):
+        raise AssertionError(f"CudaRuntimeCheck on the card: {out}")
+    return out
+
+
+def injob_path(smoke):
+    """Phase 14: fault tolerance and in-job restart on the card (see the module's
+    docstring). Returns the workers' ``loop`` launches."""
+    import shutil
+    import tempfile
+
+    torch = smoke.torch
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="injob-path-"))
+    shapes = llama_shard_shapes(**SHARD_32)
+    shard = {"params": shapes, "opt": {"mu": shapes, "nu": shapes}}
+    if shard_nbytes(shard) != CKPT_SHARD_32_BYTES:
+        raise AssertionError(f"the 1/32 shard holds {shard_nbytes(shard)} B, not "
+                             f"{CKPT_SHARD_32_BYTES}")
+    try:
+        try:
+            import yaml  # noqa: F401
+
+            has_yaml = True
+        except ImportError:
+            has_yaml = False
+        cold, cold_loop, masks = hang_scenario("cold", root, shard)
+        warm, warm_loop, _ = hang_scenario("warm", root, shard, extra_launcher=[
+            "--warm-spares", "1", "--warm-spare-warmup", "runtime"])
+        if not warm["promoted"]:
+            raise AssertionError("injob warm: round 1 was not promoted from the parked spare")
+        layered, layered_loop = layered_scenario(root, masks)
+        runtime = runtime_check_on_card(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    smoke.emit("injob_path", seconds=time.perf_counter() - t0, yaml_importable=has_yaml,
+               ranks=R, signals=S, window=W, steps=INJOB_STEPS, hang_step=INJOB_FAULT_STEP,
+               checkpoint_every=INJOB_CKPT_EVERY, shard_bytes=CKPT_SHARD_32_BYTES,
+               heartbeat_timeout_s=INJOB_HB_TIMEOUT_S,
+               workload_check_interval_s=INJOB_CHECK_INTERVAL_S,
+               cold_respawn=cold, warm_spare_respawn=warm, layered_sticky_error=layered,
+               cuda_runtime_check=runtime)
+    return cold_loop + warm_loop + layered_loop
 
 
 def main() -> int:
@@ -2192,6 +2684,10 @@ def main() -> int:
     del rows
     torch.cuda.empty_cache()
     checkpoint_path(smoke)
+
+    # 14. in-job restart path: the workers' own loop launches ------------------------
+    torch.cuda.empty_cache()
+    path_launches["loop"] += injob_path(smoke)
 
     kernels = []
     for mode in sk.MODES:

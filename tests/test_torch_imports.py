@@ -21,6 +21,7 @@ from tpu_resiliency_torch.telemetry.device_profiler import DeviceTimeProfiler
 from tpu_resiliency_torch.telemetry.reporting import ReportGenerator
 from tpu_resiliency_torch.telemetry.ring_buffer import DeviceRings
 from tpu_resiliency_torch.telemetry.sharded import MeshTelemetry
+from tpu_resiliency_torch.watchdog import CudaRuntimeCheck
 
 PACKAGE_DIR = Path(tpu_resiliency_torch.__file__).parent
 REPO_ROOT = PACKAGE_DIR.parent
@@ -98,16 +99,42 @@ CHECKPOINT_MODULES = (
 )
 
 
+#: Modules of the fault-tolerance slice, each imported by the subprocess check.
+FT_MODULES = (
+    "tpu_resiliency_torch.platform.ipc",
+    "tpu_resiliency_torch.platform.wire",
+    "tpu_resiliency_torch.platform.compile_cache",
+    "tpu_resiliency_torch.utils.stackdump",
+    "tpu_resiliency_torch.watchdog",
+    "tpu_resiliency_torch.watchdog.config",
+    "tpu_resiliency_torch.watchdog.timeouts",
+    "tpu_resiliency_torch.watchdog.health",
+    "tpu_resiliency_torch.watchdog.monitor_server",
+    "tpu_resiliency_torch.watchdog.monitor_client",
+    "tpu_resiliency_torch.integrations.ft_callbacks",
+    "tpu_resiliency_torch.launcher",
+    "tpu_resiliency_torch.launcher.errors",
+    "tpu_resiliency_torch.launcher.proc",
+    "tpu_resiliency_torch.launcher.rendezvous",
+    "tpu_resiliency_torch.launcher.park",
+    "tpu_resiliency_torch.launcher.agent",
+    "tpu_resiliency_torch.launcher.launch",
+    "tpu_resiliency_torch.examples",
+    "tpu_resiliency_torch.examples.resilient_training",
+    "tpu_resiliency_torch.examples.layered_restart",
+)
+
+
 def test_importing_every_module_loads_no_jax():
     names = ["tpu_resiliency_torch", *_module_names()]
     assert "tpu_resiliency_torch.ops.scoring_kernels" in names
-    assert set(SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES) <= set(names)
+    assert set(SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES + FT_MODULES) <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.')\n"
+        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.') or m == 'yaml'\n"
         "             or m == 'tpu_resiliency' or m.startswith('tpu_resiliency.'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -123,7 +150,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     files = {str(p.relative_to(REPO_ROOT).with_suffix("")).replace("/", ".")
              for p in PACKAGE_DIR.rglob("*.py")}
     assert {m if m in files else m + ".__init__"
-            for m in SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES} <= files
+            for m in SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES + FT_MODULES} <= files
     for path in PACKAGE_DIR.rglob("*.py"):
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -150,6 +177,8 @@ ENTRY_POINTS = {
         np.ones(8, np.float32), np.full((8, 2), np.inf, np.float32), **kw,
     ),
     "resolve_device": lambda **kw: port_device.resolve_device(**kw),
+    "CudaRuntimeCheck": lambda **kw: CudaRuntimeCheck(
+        device_count=lambda: 1, mem_get_info=lambda index: (1, 2), **kw),
 }
 
 

@@ -30,6 +30,7 @@ ANSWERED = {
     "tpu_resiliency.telemetry.scoring.score_round_sharded": "score_round(group=...)",
     "tpu_resiliency.inprocess.health_check.JaxHealthCheck": "CudaHealthCheck",
     "tpu_resiliency.inprocess.abort.AbortJaxDistributed": "AbortTorchDistributed",
+    "tpu_resiliency.watchdog.health.TpuRuntimeCheck": "CudaRuntimeCheck",
 }
 
 #: Reference modules with no counterpart in the port yet, by package.
@@ -40,19 +41,11 @@ NOT_YET_PORTED = (
     "tpu_resiliency.fleet.registry",
     "tpu_resiliency.fleet.server",
     # integrations
-    "tpu_resiliency.integrations.ft_callbacks",
     "tpu_resiliency.integrations.orbax_adapter",
     "tpu_resiliency.integrations.preemption",
     # launcher
-    "tpu_resiliency.launcher",
-    "tpu_resiliency.launcher.agent",
     "tpu_resiliency.launcher.autoscale",
-    "tpu_resiliency.launcher.errors",
     "tpu_resiliency.launcher.incident",
-    "tpu_resiliency.launcher.launch",
-    "tpu_resiliency.launcher.park",
-    "tpu_resiliency.launcher.proc",
-    "tpu_resiliency.launcher.rendezvous",
     "tpu_resiliency.launcher.telemetry",
     # models
     "tpu_resiliency.models",
@@ -63,9 +56,6 @@ NOT_YET_PORTED = (
     "tpu_resiliency.parallel.mesh",
     "tpu_resiliency.parallel.pipeline",
     "tpu_resiliency.parallel.ring_attention",
-    # platform
-    "tpu_resiliency.platform.compile_cache",
-    "tpu_resiliency.platform.ipc",
     # telemetry
     "tpu_resiliency.telemetry.remediation",
     "tpu_resiliency.telemetry.watchtower",
@@ -85,14 +75,7 @@ NOT_YET_PORTED = (
     "tpu_resiliency.utils.byteflow",
     "tpu_resiliency.utils.goodput",
     "tpu_resiliency.utils.metrics",
-    "tpu_resiliency.utils.stackdump",
     "tpu_resiliency.utils.timeseries",
-    # watchdog
-    "tpu_resiliency.watchdog.config",
-    "tpu_resiliency.watchdog.health",
-    "tpu_resiliency.watchdog.monitor_client",
-    "tpu_resiliency.watchdog.monitor_server",
-    "tpu_resiliency.watchdog.timeouts",
 )
 
 #: The modules of the straggler-detection slice: each has its counterpart.
@@ -173,6 +156,29 @@ CHECKPOINT_SLICE = (
 )
 
 
+#: The modules of the fault-tolerance slice (the rank monitor and its client, the
+#: health checks, the FT callbacks, the compile cache and the in-job launcher) and the
+#: support they stand on: each has its counterpart.
+FT_SLICE = (
+    "tpu_resiliency.platform.ipc",
+    "tpu_resiliency.utils.stackdump",
+    "tpu_resiliency.watchdog.config",
+    "tpu_resiliency.watchdog.timeouts",
+    "tpu_resiliency.watchdog.health",
+    "tpu_resiliency.watchdog.monitor_server",
+    "tpu_resiliency.watchdog.monitor_client",
+    "tpu_resiliency.integrations.ft_callbacks",
+    "tpu_resiliency.platform.compile_cache",
+    "tpu_resiliency.launcher",
+    "tpu_resiliency.launcher.errors",
+    "tpu_resiliency.launcher.proc",
+    "tpu_resiliency.launcher.rendezvous",
+    "tpu_resiliency.launcher.park",
+    "tpu_resiliency.launcher.agent",
+    "tpu_resiliency.launcher.launch",
+)
+
+
 def _answered(package: str) -> dict[str, str]:
     """ANSWERED's reference names exported by ``package``, mapped to their answers."""
     return {name.rsplit(".", 1)[1]: answer for name, answer in ANSWERED.items()
@@ -239,6 +245,12 @@ def test_the_checkpoint_slice_is_ported(module):
     assert has_counterpart(module) and module not in NOT_YET_PORTED
 
 
+@pytest.mark.parametrize("module", FT_SLICE)
+def test_the_fault_tolerance_slice_is_ported(module):
+    assert module in reference_modules()
+    assert has_counterpart(module) and module not in NOT_YET_PORTED
+
+
 def test_renamed_modules_exist_on_both_sides():
     for ref, port in RENAMED.items():
         assert ref in reference_modules()
@@ -261,8 +273,6 @@ def test_the_port_exports_the_ported_integration_names():
     import tpu_resiliency_torch.integrations as port
 
     not_yet = {
-        "FaultToleranceCallback": "tpu_resiliency.integrations.ft_callbacks",
-        "FaultToleranceSectionsCallback": "tpu_resiliency.integrations.ft_callbacks",
         "OrbaxCheckpointCallback": "tpu_resiliency.integrations.orbax_adapter",
         "PreemptionCheckpointCallback": "tpu_resiliency.integrations.preemption",
     }
@@ -290,3 +300,24 @@ def test_the_port_exports_every_reference_inprocess_name_or_answers_it():
     assert sorted(set(port.__all__) - set(ref.__all__)) == sorted(answered.values())
     for name, answer in answered.items():
         assert not hasattr(port, name) and callable(getattr(port, answer))
+
+
+def test_the_port_exports_every_reference_watchdog_name_or_answers_it():
+    import tpu_resiliency.watchdog as ref
+    import tpu_resiliency_torch.watchdog as port
+
+    answered = _answered("tpu_resiliency.watchdog")
+    assert answered == {"TpuRuntimeCheck": "CudaRuntimeCheck"}
+    assert sorted(set(ref.__all__) - set(port.__all__)) == sorted(answered)
+    assert sorted(set(port.__all__) - set(ref.__all__)) == sorted(answered.values())
+    for name, answer in answered.items():
+        assert not hasattr(port, name) and getattr(port, answer) is not None
+    assert all(getattr(port, name) is not None for name in port.__all__)
+
+
+def test_the_port_exports_every_reference_launcher_name():
+    import tpu_resiliency.launcher as ref
+    import tpu_resiliency_torch.launcher as port
+
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    assert all(getattr(port, name) is not None for name in port.__all__)

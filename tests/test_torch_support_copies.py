@@ -1,7 +1,9 @@
 """Copies stay copies: each module the port copies from the JAX package (the support
-of the in-process restart slice, the modules of ``inprocess/`` that hold no JAX, and
-the checkpoint layer but for ``checkpoint/state_dict.py`` and ``staging.py``, which
-are ports of their own) must equal the reference's text with its imports rewritten from ``tpu_resiliency.``
+of the in-process restart slice, the modules of ``inprocess/`` that hold no JAX, the
+checkpoint layer but for ``checkpoint/state_dict.py`` and ``staging.py``, which are
+ports of their own, and the fault-tolerance slice: the watchdog, the launcher, the
+FT callbacks, ``platform/ipc.py``, ``compile_cache.py`` and ``utils/stackdump.py``)
+must equal the reference's text with its imports rewritten from ``tpu_resiliency.``
 to ``tpu_resiliency_torch.``, except for the edits listed here, each with its reason.
 An edit to a copy has to be added to this list, with why.
 """
@@ -24,7 +26,13 @@ _DOCSTRING = re.compile(r'\A"""(.*?)"""\n', re.S)
 OWN_DOCSTRING = {
     "inprocess/__init__.py": "names the port's CUDA abort and health check",
     "inprocess/health_check.py": "describes CudaHealthCheck, the port's check",
-    "inprocess/wrap.py": "says what the port leaves out (the compilation cache)",
+    "inprocess/wrap.py": "names the port's abort, health check and compilation cache",
+    "watchdog/health.py": "names CudaRuntimeCheck and the port's liveness probe",
+    "platform/compile_cache.py": "describes torch.compile's caches, not JAX's",
+    "launcher/park.py": "spares preload torch and warm no CUDA context",
+    "launcher/proc.py": "workers are CUDA processes, not JAX ones",
+    "launcher/launch.py": "names the port's CLI and the flags it refuses",
+    "integrations/ft_callbacks.py": "the loop protocol is no longer JAX's",
 }
 
 JAX_HEALTH_CHECK = '''@dataclasses.dataclass
@@ -136,6 +144,139 @@ CUDA_GUARD = '''def _cuda_initialized() -> bool:
     return torch.cuda.is_initialized()
 '''
 
+DEVICE_LIVENESS_CHECK = '''class DeviceLivenessCheck(HealthCheck):
+    """Two tiny launches, each followed by a synchronize, under a timeout thread
+    (the reference ``CudaHealthCheck`` double-sync analogue,
+    ``inprocess/health_check.py:70-110``). ``device=None`` means the card;
+    ``device="cpu"`` probes the CPU."""
+
+    def __init__(self, timeout: float = 60.0, device: Any = None):
+        self.timeout = timeout
+        self.device = device
+
+    def __call__(self) -> bool:
+        from tpu_resiliency_torch.platform.device import device_liveness_probe
+
+        return device_liveness_probe(timeout=self.timeout, device=self.device)
+'''
+CUDA_RUNTIME_CHECK = '''class CudaRuntimeCheck(HealthCheck):
+    """CUDA runtime state: device inventory + device-memory pressure.
+
+    The analogue of the reference's NVML device/recovery-state poll
+    (``shared_utils/health_check.py:148-303``), read through the CUDA runtime: the
+    check must run in a process that owns the card (the worker — wire it into the
+    in-process restart health chain or poll it from the train loop). A rank-monitor
+    process never creates a CUDA context, and each device this check reads gets one
+    in the calling process.
+
+    Unhealthy when: the runtime can no longer count devices, the visible device
+    count drops below ``expect_devices``, or any device's memory pressure exceeds
+    ``hbm_usage_threshold`` (``1 - free/total``, from ``torch.cuda.mem_get_info``).
+
+    ``device=None`` means the card, and construction raises without one. The CPU has
+    no device inventory: ``device="cpu"`` needs ``device_count`` and
+    ``mem_get_info`` (``index -> (free, total)``) from the caller, which also
+    replace the runtime's on the card.
+    """
+
+    def __init__(
+        self,
+        expect_devices: Optional[int] = None,
+        hbm_usage_threshold: float = 0.98,
+        device: Any = None,
+        device_count: Optional[Callable[[], int]] = None,
+        mem_get_info: Optional[Callable[[int], tuple[int, int]]] = None,
+    ):
+        from tpu_resiliency_torch.platform.device import resolve_device
+
+        self.device = resolve_device(device)
+        if self.device.type != "cuda" and (device_count is None or mem_get_info is None):
+            raise ValueError(
+                "CudaRuntimeCheck on the CPU needs device_count and mem_get_info"
+            )
+        self.expect_devices = expect_devices
+        self.hbm_usage_threshold = hbm_usage_threshold
+        self._device_count = device_count
+        self._mem_get_info = mem_get_info
+        self.last_failure: Optional[str] = None
+
+    def _count(self) -> int:
+        if self._device_count is not None:
+            return self._device_count()
+        import torch
+
+        return torch.cuda.device_count()
+
+    def _memory(self, index: int) -> tuple[int, int]:
+        if self._mem_get_info is not None:
+            return self._mem_get_info(index)
+        import torch
+
+        return torch.cuda.mem_get_info(index)
+
+    def __call__(self) -> bool:
+        self.last_failure = None
+        try:
+            count = self._count()
+        except Exception as e:
+            self.last_failure = f"device enumeration failed: {e!r}"
+            log.error(self.last_failure)
+            return False
+        if not count:
+            self.last_failure = "no local devices visible"
+            log.error(self.last_failure)
+            return False
+        if self.expect_devices is not None and count < self.expect_devices:
+            self.last_failure = (
+                f"device count dropped: {count} < expected {self.expect_devices}"
+            )
+            log.error(self.last_failure)
+            return False
+        for index in range(count):
+            try:
+                free, total = self._memory(index)
+            except Exception as e:
+                self.last_failure = f"memory query of device {index} failed: {e!r}"
+                log.error(self.last_failure)
+                return False
+            if not total:
+                continue
+            usage = 1.0 - free / total
+            if usage > self.hbm_usage_threshold:
+                self.last_failure = (
+                    f"device memory pressure on device {index}: {usage:.1%} > "
+                    f"{self.hbm_usage_threshold:.0%} ({total - free}/{total} bytes)"
+                )
+                log.error(self.last_failure)
+                return False
+        return True
+
+    def describe(self) -> str:
+        return f"CudaRuntimeCheck({self.last_failure or 'ok'})"
+
+
+'''
+UNPORTED_FEATURES = '''
+#: Options of the JAX package's agent whose modules the port does not hold yet, and
+#: those modules: a config or a launcher flag that asks for one fails, never is
+#: silently ignored.
+UNPORTED_FEATURES = {
+    "incidents_dir": "tpu_resiliency/launcher/incident.py",
+    "telemetry_port": "tpu_resiliency/launcher/telemetry.py",
+    "fleet_dir": "tpu_resiliency/launcher/telemetry.py and tpu_resiliency/fleet/",
+    "autoscale": "tpu_resiliency/launcher/autoscale.py and "
+                 "tpu_resiliency/telemetry/remediation.py",
+    "alerts": "tpu_resiliency/telemetry/watchtower.py",
+    "metrics_file": "tpu_resiliency/utils/metrics.py",
+}
+
+
+def unported(option: str) -> str:
+    """The error for an option whose module is not ported yet."""
+    return (f"{option} needs {UNPORTED_FEATURES[option]}, which is not ported to "
+            f"tpu_resiliency_torch yet")
+'''
+
 #: Per copied module (path under both packages): ``(reference text, port text, why)``
 #: after the import rewrite. Each reference text (or pattern) must occur exactly once.
 COPIES = {
@@ -197,25 +338,7 @@ except ImportError:  # pragma: no cover - depends on build_ext having run
             return _probe_native.count() > before
 ''', "", "the native probe's round trip goes with it"),
     ),
-    "inprocess/wrap.py": (
-        ('''        self._atomic_lock = threading.RLock()
-
-        # Persistent compilation cache (launcher --compile-cache-dir): applied
-        # BEFORE the wrapped fn can trace/compile anything, so a restarted
-        # incarnation's first step loads the previous round's executables.
-        # One-shot per process; records the compile_cache event
-        # (hit / miss / miss_corrupt + bytes) that feeds
-        # tpu_compile_cache_total{outcome} and the goodput ledger's restart
-        # attribution. Failures degrade to a cold compile, never an error.
-        try:
-            from tpu_resiliency_torch.platform import compile_cache
-
-            compile_cache.apply_from_env()
-        except Exception:
-            log.debug("compile cache apply failed", exc_info=True)
-''', '''        self._atomic_lock = threading.RLock()
-''', "the port has no compiled programs yet: platform/compile_cache.py is not ported"),
-    ),
+    "inprocess/wrap.py": (),
     "inprocess/health_check.py": (
         ("from typing import Optional\n", "from typing import Any, Optional\n",
          "the device field"),
@@ -340,6 +463,242 @@ except ImportError:  # pragma: no cover - depends on build_ext having run
          "self.local_manager.load_tree(local_step, device=self.device)", "placed on device"),
         ("AsyncCheckpointer.load(path, rank=self.rank)",
          "AsyncCheckpointer.load(path, rank=self.rank, device=self.device)", "placed on device"),
+    ),
+    # -- the fault-tolerance slice
+    "utils/stackdump.py": (),
+    "watchdog/data.py": (),
+    "watchdog/timeouts.py": (),
+    "watchdog/monitor_client.py": (),
+    "launcher/__init__.py": (),
+    "launcher/errors.py": (),
+    "launcher/rendezvous.py": (),
+    "integrations/ft_callbacks.py": (),
+    "launcher/proc.py": (),
+    "platform/ipc.py": (
+        ("""Framing is shared with the TCP store protocol (``platform/framing.py``). Unix sockets are
+filesystem-permission-protected, so no auth handshake is needed here.""",
+         """Framing is shared with the TCP store protocol (``platform/framing.py``); the pickles name
+classes by the JAX package's paths (``platform/wire.py``), so either package's monitor and
+client talk to the other's. Unix sockets are filesystem-permission-protected, so no auth
+handshake is needed here.""", "the docstring names the wire"),
+        ("from tpu_resiliency_torch.platform import chaos, framing\n",
+         "from tpu_resiliency_torch.platform import chaos, wire\n", "the monitor channel's wire"),
+        ("""write_object = framing.send_obj
+read_object = functools.partial(framing.recv_obj, max_frame=_MAX_FRAME)
+read_object_stream = functools.partial(framing.read_obj_stream, max_frame=_MAX_FRAME)
+write_object_stream = framing.write_obj_stream""",
+         """write_object = wire.send_obj
+read_object = functools.partial(wire.recv_obj, max_frame=_MAX_FRAME)
+read_object_stream = functools.partial(wire.read_obj_stream, max_frame=_MAX_FRAME)
+write_object_stream = wire.write_obj_stream""",
+         "frames name the port's classes by the JAX package's paths, so a port client and "
+         "a reference monitor (and back) understand each other"),
+    ),
+    "watchdog/config.py": (
+        ("from typing import Any, Mapping, Optional\n\nimport yaml\n",
+         "from typing import Any, Mapping, Optional\n",
+         "PyYAML is not on the card's machine: only the YAML paths import it"),
+        ("""    # reference's GPU/NIC checks; None disables each. TpuRuntimeCheck is NOT
+    # listed: it must run in the process that owns the TPU (wire it into the""",
+         """    # reference's GPU/NIC checks; None disables each. CudaRuntimeCheck is NOT
+    # listed: it must run in the process that owns the card (wire it into the""",
+         "names the port's runtime check"),
+        ("""        (reference ``config.py:224-239``).\"\"\"
+        with open(path) as f:""",
+         """        (reference ``config.py:224-239``).\"\"\"
+        import yaml  # only the YAML paths need PyYAML
+
+        with open(path) as f:""", "yaml imported where it is used"),
+        ("""    def to_yaml_file(self, path: str) -> None:
+        with open(path, "w") as f:""",
+         """    def to_yaml_file(self, path: str) -> None:
+        import yaml
+
+        with open(path, "w") as f:""", "yaml imported where it is used"),
+        ("""        if field == "rank_section_timeouts":
+            return yaml.safe_load(value)""",
+         """        if field == "rank_section_timeouts":
+            import yaml
+
+            return yaml.safe_load(value)""", "yaml imported where it is used"),
+    ),
+    "watchdog/health.py": (
+        ("from typing import Callable, Optional\n", "from typing import Any, Callable, Optional\n",
+         "the device arguments"),
+        (re.compile(r"class DeviceLivenessCheck\(HealthCheck\):\n.*?return device_liveness_probe"
+                    r"\(timeout=self\.timeout\)\n", re.S),
+         DEVICE_LIVENESS_CHECK, "the port's probe takes the device (None: the card)"),
+        (re.compile(r"class TpuRuntimeCheck\(HealthCheck\):\n.*?\n\n\n(?=class HostMemoryCheck)",
+                    re.S), CUDA_RUNTIME_CHECK,
+         "TpuRuntimeCheck is answered by CudaRuntimeCheck: device count and mem_get_info "
+         "pressure through the CUDA runtime"),
+    ),
+    "watchdog/monitor_server.py": (
+        ("from tpu_resiliency_torch.platform import framing\n",
+         "from tpu_resiliency_torch.platform import wire\n", "the monitor channel's wire"),
+        ("msg = await framing.read_obj_stream(reader)", "msg = await wire.read_obj_stream(reader)",
+         "the monitor channel's wire"),
+        ("await framing.write_obj_stream(writer, reply)",
+         "await wire.write_obj_stream(writer, reply)", "the monitor channel's wire"),
+        ("""        # JAX-threaded parent) pay full interpreter startup, which on TPU images
+        # can be several seconds even unloaded.""",
+         """        # threaded parent) pay full interpreter startup, which can be several
+        # seconds even unloaded.""", "no JAX here"),
+        ("""    # A forked monitor must never touch the parent's TPU runtime.
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+""", """    # A forked monitor must never touch the card: no CUDA context here (one
+    # would hold device memory and block on a hung card). Hiding the cards makes
+    # any CUDA call in this process fail instead of opening one.
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+""", "a monitor opens no CUDA context"),
+    ),
+    "watchdog/__init__.py": (
+        ("    CallbackHealthCheck,\n    DeviceLivenessCheck,\n",
+         "    CallbackHealthCheck,\n    CudaRuntimeCheck,\n    DeviceLivenessCheck,\n",
+         "the port's runtime check"),
+        ("    SysfsCounterCheck,\n    TpuRuntimeCheck,\n)", "    SysfsCounterCheck,\n)",
+         "not in the port"),
+        ('    "TpuRuntimeCheck",\n', '    "CudaRuntimeCheck",\n', "exported in its place"),
+    ),
+    "platform/compile_cache.py": (
+        ('''#: exported by the launcher; consumed by :func:`apply_from_env` in workers
+CACHE_DIR_ENV = "TPU_RESILIENCY_COMPILE_CACHE_DIR"
+''', '''#: exported by the launcher; consumed by :func:`apply_from_env` in workers
+CACHE_DIR_ENV = "TPU_RESILIENCY_COMPILE_CACHE_DIR"
+
+#: torch.compile's caches, each in a directory of its own under the cache dir
+INDUCTOR_CACHE_ENV = "TORCHINDUCTOR_CACHE_DIR"
+TRITON_CACHE_ENV = "TRITON_CACHE_DIR"
+
+
+def compiler_cache_env(path: str) -> dict[str, str]:
+    """The compiler cache variables for cache directory ``path``."""
+    return {INDUCTOR_CACHE_ENV: os.path.join(path, "inductor"),
+            TRITON_CACHE_ENV: os.path.join(path, "triton")}
+
+''', "torch.compile's cache variables, which the launcher exports too"),
+        (re.compile(r'    """Sweep ``path``, point JAX.*?caching off\."""', re.S),
+         '''    """Sweep ``path``, point torch.compile's Inductor and Triton caches under it
+    (:func:`compiler_cache_env`), and register an exit-time manifest refresh.
+    Returns the sweep stats.
+
+    Every failure mode degrades to a cold compile: an unusable directory simply
+    leaves caching off. The variables are read when a compiler first looks for
+    its cache, so apply this before the first ``torch.compile``d call."""''',
+         "the docstring describes torch.compile's caches"),
+        (re.compile(r'    stats\["enabled"\] = True\n    try:\n        import jax\n.*?'
+                    r'        return stats\n    import atexit', re.S),
+         '    stats["enabled"] = True\n    os.environ.update(compiler_cache_env(path))\n'
+         '    import atexit', "the caches are torch.compile's, set through its variables"),
+    ),
+    "launcher/park.py": (
+        ('    ap.add_argument("--preload", default="jax")',
+         '    ap.add_argument("--preload", default="torch")', "spares preload torch"),
+        ('    run_dir: str, spare_id: int, preload: str = "jax",',
+         '    run_dir: str, spare_id: int, preload: str = "torch",', "spares preload torch"),
+        ('        self, size: int, run_dir: str, preload: str = "jax",',
+         '        self, size: int, run_dir: str, preload: str = "torch",', "spares preload torch"),
+    ),
+    "launcher/agent.py": (
+        ("log = get_logger(__name__)\n\n\n@dataclasses.dataclass\nclass AgentConfig:",
+         "log = get_logger(__name__)\n" + UNPORTED_FEATURES + "\n\n@dataclasses.dataclass\n"
+         "class AgentConfig:", "the options whose modules are not ported, and their error"),
+        ('    warm_spare_preload: str = "jax"\n', '    warm_spare_preload: str = "torch"\n',
+         "spares preload torch"),
+        ("""            raise ValueError(
+                f"unknown alerts mode {self.alerts!r}: want off | on"
+            )
+""", """            raise ValueError(
+                f"unknown alerts mode {self.alerts!r}: want off | on"
+            )
+        asked = [name for name, on in (
+            ("incidents_dir", bool(self.incidents_dir)),
+            ("telemetry_port", self.telemetry_port is not None),
+            ("fleet_dir", bool(self.fleet_dir)),
+            ("autoscale", self.autoscale != "off"),
+        ) if on]
+        if asked:
+            raise NotImplementedError("; ".join(unported(name) for name in asked))
+""", "a config that asks for an unported feature fails at construction"),
+        (re.compile(r'        self\.incidents: Optional\["IncidentEngine"\] = None\n.*?'
+                    r"            self\.incidents\.attach\(\)\n", re.S),
+         "        #: the incident plane (``launcher/incident.py``) is not ported:\n"
+         "        #: AgentConfig refuses ``incidents_dir``\n"
+         "        self.incidents = None\n", "the incident plane is not ported"),
+        (re.compile(r"(    def _start_telemetry\(self\) -> None:\n).*?(?=\n    # -- autoscale)",
+                    re.S),
+         r'\1        raise NotImplementedError(unported("telemetry_port"))\n',
+         "the telemetry server and watchtower are not ported"),
+        (re.compile(r"(    def _start_autoscale\(self\) -> None:\n).*?(?=\n    # -- hang forensics)",
+                    re.S),
+         r'\1        raise NotImplementedError(unported("autoscale"))\n',
+         "the autoscale controller and remediation are not ported"),
+    ),
+    "launcher/launch.py": (
+        ("from tpu_resiliency_torch.launcher.agent import AgentConfig, ElasticAgent, WorkersFailed\n",
+         "from tpu_resiliency_torch.launcher.agent import (\n    AgentConfig,\n    ElasticAgent,\n"
+         "    WorkersFailed,\n    unported,\n)\n", "the refusal's message"),
+        ("from tpu_resiliency_torch.utils.events import EVENTS_FILE_ENV, METRICS_FILE_ENV\n",
+         "from tpu_resiliency_torch.utils.events import EVENTS_FILE_ENV\n",
+         "--metrics-file is refused"),
+        ('        description="Fault-tolerant elastic launcher for TPU training workloads.",',
+         '        description="Fault-tolerant elastic launcher for PyTorch training workloads "\n'
+         '        "on CUDA cards.",', "the port's workloads"),
+        ('        "--warm-spare-preload",\n        default="jax",',
+         '        "--warm-spare-preload",\n        default="torch",', "spares preload torch"),
+        ("""        "'runtime' (platform-safe runtime warmup: plugin discovery, tracing "
+        "machinery, CPU/loopback backend pre-init — device grabbing stays "
+        "strictly post-promotion), or a custom 'module:function' spec; \"""",
+         """        "'runtime' (platform-safe runtime warmup: the port's packages imported, "
+        "its built kernel libraries opened, one CPU operation, no CUDA context — "
+        "device grabbing stays strictly post-promotion), or a custom "
+        "'module:function' spec; \"""", "the port's runtime warmup"),
+        ("""        help="persistent XLA compilation cache shared across restart rounds "
+        "(exports $JAX_COMPILATION_CACHE_DIR + "
+        "$TPU_RESILIENCY_COMPILE_CACHE_DIR to workers): a respawned worker's "
+        "first step loads the previous round's executables instead of "
+        "re-tracing/re-compiling; corrupt entries are swept to a cold \"""",
+         """        help="persistent torch.compile caches shared across restart rounds "
+        "(exports $TORCHINDUCTOR_CACHE_DIR, $TRITON_CACHE_DIR and "
+        "$TPU_RESILIENCY_COMPILE_CACHE_DIR to workers): a respawned worker's "
+        "first compiled step loads the previous round's artifacts instead of "
+        "re-compiling; corrupt entries are swept to a cold \"""", "torch.compile's caches"),
+        ('        "--alerts",\n        choices=("off", "on"),\n        default="on",',
+         '        "--alerts",\n        choices=("off", "on"),\n        default=None,',
+         "an explicit --alerts on is refused, so the default must be told apart"),
+        ("""    # Flag validation first: reject before ANY side effects (env mutation,
+    # store hosting).
+""", """    # Flag validation first: reject before ANY side effects (env mutation,
+    # store hosting).
+    refused = [name for name, asked in (
+        ("metrics_file", args.metrics_file),
+        ("incidents_dir", args.incidents_dir),
+        ("telemetry_port", args.telemetry_port is not None),
+        ("fleet_dir", args.fleet_dir),
+        ("autoscale", args.autoscale != "off"),
+        ("alerts", args.alerts == "on"),
+    ) if asked]
+    for name in refused:
+        log.error(f"--{name.replace('_', '-')}: {unported(name)}")
+    if refused:
+        return 2
+""", "a flag whose module is not ported exits with an error naming it"),
+        (re.compile(r"    if args\.fleet_dir:\n        from tpu_resiliency_torch\.utils\.events "
+                    r"import JOB_ENV\n.*?os\.path\.abspath\(args\.metrics_file\)\n", re.S), "",
+         "--fleet-dir and --metrics-file are refused above"),
+        ("""        # JAX_COMPILATION_CACHE_DIR makes plain-JAX workers (no tpu_resiliency
+        # import) cache too. Sweep HERE, before any worker starts, so a cache
+        # corrupted between jobs is purged exactly once up front.
+        os.environ[compile_cache.CACHE_DIR_ENV] = cache_dir
+        os.environ["JAX_COMPILATION_CACHE_DIR"] = cache_dir""",
+         """        # the compiler variables make workers that never import it cache too.
+        # Sweep HERE, before any worker starts, so a cache corrupted between
+        # jobs is purged exactly once up front.
+        os.environ[compile_cache.CACHE_DIR_ENV] = cache_dir
+        os.environ.update(compile_cache.compiler_cache_env(cache_dir))""",
+         "torch.compile's cache variables"),
+        ("        alerts=args.alerts,", '        alerts=args.alerts or "off",',
+         "no watchtower runs without telemetry"),
     ),
 }
 

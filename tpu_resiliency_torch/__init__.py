@@ -24,6 +24,15 @@ order, pinned staging, the pipelined and blocking save engines, clique replicati
 coding, the cold tier, the integrity ladder and reshard; containers interchange byte
 for byte with the JAX package's) and ``integrations.checkpoint_callback``.
 
+The fault-tolerance slice: ``watchdog`` (the rank monitor and its client, heartbeats
+and sections, the timeouts calculator, the config, and the health checks with
+``CudaRuntimeCheck``), ``integrations.ft_callbacks``, ``launcher`` (the in-job
+restart launcher, ``python -m tpu_resiliency_torch.launcher.launch``, with its
+rendezvous, worker groups and warm spares), ``platform.ipc`` over ``platform.wire``
+(monitor frames that the JAX package's monitor reads, and back),
+``platform.compile_cache`` (torch.compile's caches across restarts), and the worker
+examples ``examples.resilient_training`` and ``examples.layered_restart``.
+
 Entry points run on the CUDA card by default and raise when there is none; pass
 ``device="cpu"`` to run the plain PyTorch path on the CPU.
 """

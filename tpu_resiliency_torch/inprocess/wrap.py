@@ -3,9 +3,8 @@
 A copy of ``tpu_resiliency/inprocess/wrap.py`` for the port, which drives PyTorch
 training functions on the card: the abort chain takes ``AbortTorchDistributed``
 (NCCL communicators aborted, process groups destroyed) and the health check
-``CudaHealthCheck``. The reference applies its persistent compilation cache here;
-the port has no compiled programs to cache yet, so that step is left out. Its
-docstring follows.
+``CudaHealthCheck``; the persistent compilation cache it applies at engine start is
+torch.compile's (``platform/compile_cache.py``). Its docstring follows.
 
 Re-design of the reference's ``inprocess/wrap.py`` (``Wrapper:75``, ``CallWrapper:246``,
 restart loop ``:394-588``) for JAX/TPU training functions. The contract preserved
@@ -147,6 +146,20 @@ class CallWrapper:
 
         self.state = State.from_env()
         self._atomic_lock = threading.RLock()
+
+        # Persistent compilation cache (launcher --compile-cache-dir): applied
+        # BEFORE the wrapped fn can trace/compile anything, so a restarted
+        # incarnation's first step loads the previous round's executables.
+        # One-shot per process; records the compile_cache event
+        # (hit / miss / miss_corrupt + bytes) that feeds
+        # tpu_compile_cache_total{outcome} and the goodput ledger's restart
+        # attribution. Failures degrade to a cold compile, never an error.
+        try:
+            from tpu_resiliency_torch.platform import compile_cache
+
+            compile_cache.apply_from_env()
+        except Exception:
+            log.debug("compile cache apply failed", exc_info=True)
 
         host, port = store_addr_from_env()
         if wrapper.store_host is not None:

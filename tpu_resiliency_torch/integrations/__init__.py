@@ -1,9 +1,13 @@
 """Training-loop callbacks (the ``ptl_resiliency`` analogue): the loop protocol, the
-straggler-detection callback and the hierarchical checkpoint callback. The
-fault-tolerance and preemption callbacks of the JAX package are not ported yet (see
-ROADMAP.md)."""
+fault-tolerance callbacks (heartbeats, sections), the straggler-detection callback and
+the hierarchical checkpoint callback. The preemption and Orbax callbacks of the JAX
+package are not ported yet (see ROADMAP.md)."""
 
 from tpu_resiliency_torch.integrations.checkpoint_callback import HierarchicalCheckpointCallback
+from tpu_resiliency_torch.integrations.ft_callbacks import (
+    FaultToleranceCallback,
+    FaultToleranceSectionsCallback,
+)
 from tpu_resiliency_torch.integrations.loop import (
     Callback,
     CallbackRunner,
@@ -21,4 +25,6 @@ __all__ = [
     "run_training",
     "StragglerDetectionCallback",
     "HierarchicalCheckpointCallback",
+    "FaultToleranceCallback",
+    "FaultToleranceSectionsCallback",
 ]

@@ -44,6 +44,8 @@ DEFINES: dict[str, dict[str, int]] = {
 
 _lock = threading.Lock()
 _loaded: dict[str, "BuiltLibrary"] = {}
+#: ``nvcc`` runs this process started (a restarted worker over a built tree runs none)
+nvcc_runs = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,10 +129,12 @@ def build(names: Iterable[str]) -> None:
         pending.append((name, src, out, meta))
     if not pending:
         return
+    global nvcc_runs
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name, src, out, meta in pending:
+        nvcc_runs += 1
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *_flags(name), "-o", str(tmp), str(src)]
         procs.append((name, out, meta, tmp, time.perf_counter(), subprocess.Popen(
@@ -152,8 +156,15 @@ def build(names: Iterable[str]) -> None:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
 
 
+def is_built(name: str) -> bool:
+    """Whether kernel ``name``'s library for the current sources is on disk."""
+    _, out, meta = _paths(name)
+    return out.is_file() and meta.is_file()
+
+
 def load(name: str) -> BuiltLibrary:
-    """The loaded library for kernel ``name``, built first if needed."""
+    """The loaded library for kernel ``name``, built first if needed. Loading opens
+    the library and touches no device: CUDA starts at the first launch."""
     with _lock:
         if name in _loaded:
             return _loaded[name]

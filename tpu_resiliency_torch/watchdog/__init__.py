@@ -1,7 +1,4 @@
-"""The watchdog's shared message types (``watchdog/data.py``) and the restarter state
-machine (``watchdog/state_machine.py``). The rank monitor, its client and server, the
-health checks and the timeouts calculator are not ported yet (see ROADMAP.md)."""
-
+from tpu_resiliency_torch.watchdog.config import FaultToleranceConfig
 from tpu_resiliency_torch.watchdog.data import (
     HeartbeatTimeouts,
     RankInfo,
@@ -9,11 +6,44 @@ from tpu_resiliency_torch.watchdog.data import (
     WorkloadAction,
     WorkloadControlRequest,
 )
+from tpu_resiliency_torch.watchdog.health import (
+    CallbackHealthCheck,
+    CudaRuntimeCheck,
+    DeviceLivenessCheck,
+    HealthCheck,
+    HostMemoryCheck,
+    IciLinkCheck,
+    PeriodicHealthMonitor,
+    SysfsCounterCheck,
+)
+from tpu_resiliency_torch.watchdog.monitor_client import RankMonitorClient
+from tpu_resiliency_torch.watchdog.monitor_server import RankMonitorServer
+from tpu_resiliency_torch.watchdog.state_machine import (
+    LOG_MARKER,
+    RestarterState,
+    RestarterStateMachine,
+)
+from tpu_resiliency_torch.watchdog.timeouts import TimeoutsCalc
 
 __all__ = [
+    "FaultToleranceConfig",
     "HeartbeatTimeouts",
     "RankInfo",
     "SectionTimeouts",
     "WorkloadAction",
     "WorkloadControlRequest",
+    "CallbackHealthCheck",
+    "HostMemoryCheck",
+    "IciLinkCheck",
+    "CudaRuntimeCheck",
+    "DeviceLivenessCheck",
+    "HealthCheck",
+    "PeriodicHealthMonitor",
+    "SysfsCounterCheck",
+    "RankMonitorClient",
+    "RankMonitorServer",
+    "LOG_MARKER",
+    "RestarterState",
+    "RestarterStateMachine",
+    "TimeoutsCalc",
 ]

@@ -1,9 +1,5 @@
 """Wire messages and shared types for the rank↔monitor↔launcher control plane.
 
-A copy of ``tpu_resiliency/watchdog/data.py``, the one watchdog module the port
-holds so far: the health policy's ``exclude_self_sink`` sends its
-``WorkloadAction``. The monitor, its client and server are not ported yet.
-
 Analogue of the reference's ``fault_tolerance/data.py`` (RankInfo ``:34``, timeout
 bundles ``:71-138``, Init/Heartbeat/Section/UpdateConfig/Ok/Error messages ``:141-233``,
 WorkloadAction + WorkloadControlRequest ``:236-260``). Messages travel as pickled frames
