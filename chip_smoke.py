@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's straggler-telemetry, in-process restart, checkpoint and
-in-job restart paths on one CUDA card.
+"""Drive the PyTorch port's straggler-telemetry, in-process restart, checkpoint,
+in-job restart and model paths on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA card
 and the CUDA toolkit (``nvcc``), builds the port's three window-reduction kernels
@@ -194,6 +194,40 @@ printing one JSON line that carries the card's name and power limit:
    threshold set just below the pressure an allocation makes; unhealthy with
    ``expect_devices`` one past the count. The workers' ``loop`` launches go on the
    ``kernels`` line.
+
+15. ``model_path``: the model family on the card. (a) ``TransformerConfig.llama3_8b()``
+   cut in depth only to 2 layers (1,486,901,248 parameters, f32 master weights, bf16
+   compute), batch 1 x 2048 seeded tokens, ``torch.optim.AdamW(3e-4,
+   weight_decay=0.01)``, 30 steps of ``run_training`` inside ``inprocess.Wrapper`` (a
+   one-process NCCL group built anew each iteration; the monitor kills with SIGKILL,
+   since SIGTERM is the preemption notice) with three callbacks:
+   ``StragglerDetectionCallback(profile_programs_every=10, profile_ops=True,
+   max_signals=1024)``, ``HierarchicalCheckpointCallback`` (the local tier every 10
+   steps; the train state is the parameters, AdamW's ``mu`` and ``nu`` and the step
+   count, 17,842,814,976 B) and ``PreemptionCheckpointCallback`` (the agreement on a
+   gloo group beside the NCCL one; a notice during an in-flight local save drains it
+   first). The Detector reduces its windows on the host, so each step also pushes config 4's telemetry row into a
+   ``MeshTelemetry`` at config 4 (the job's health vector) and every 10th step,
+   profiled, scores a report with the ``loop`` kernel: its ``op/`` samples must number
+   its launches in profiled steps. Iteration 0 raises in step 15 (0-based, once the
+   step-10 container is finalized); iteration 1 restores step 10 from the local tier
+   and replays steps 10-14, whose losses must equal iteration 0's bit for bit
+   (``torch.use_deterministic_algorithms(True, warn_only=True)``, cuBLAS workspace
+   ``:4096:8``; the ops that warned are printed). In step 18 the process SIGTERMs
+   itself (25, with a second local save at 20 to drain first, ran the phase 65 s over
+   its budget): the save must land at step 18 and the loop stop; a fresh interpreter
+   (``subprocess``) loads that container onto the card while this process hashes its
+   host copy of the state, and the SHA-256 of every leaf must equal the state's at the
+   save. Step 0's bf16 loss must lie within 1e-4 relative of
+   an f32 forward of the same weights on the card, and the same f32 forward with every
+   weight rounded to float8_e5m2 (a control of lower precision) must fall outside it;
+   the loss must fall, and the peak reserved memory stay under the card's. Printed: ms per step (CUDA events), tokens/s, peak
+   memory, the restart split (abort, health check, re-init, restore, other) and the
+   seconds from the signal to the finalized container. (b) ``MoEConfig()`` (d 512, 4
+   layers, 8 experts, top-2, vocab 32000), batch 8 x 512, 20 steps: the aux loss
+   finite, no expert taking more than ``capacity(512)`` tokens of a row in any layer,
+   and the loss falling; it runs first, alone on the card, before (a)'s saves load the
+   host. The health reports' ``loop`` launches go on the ``kernels`` line.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
@@ -1158,6 +1192,35 @@ def reap_strays(timeout: float) -> list[int]:
     return left
 
 
+def timed(spans, name, fn):
+    """``fn`` with the host-clock span of each call appended to ``spans[name]``."""
+    def call(state):
+        t0 = time.perf_counter()
+        try:
+            return fn(state)
+        finally:
+            spans[name].append((t0, time.perf_counter()))
+    return call
+
+
+def window_recorder(windows, iteration, **kw):
+    """A ``StragglerDetectionCallback(**kw)`` that keeps each closed profiler window's
+    ``(programs, ops)`` samples in ``windows[(iteration, step)]``."""
+    from tpu_resiliency_torch.integrations import StragglerDetectionCallback
+
+    class Windows(StragglerDetectionCallback):
+        def on_step_end(self, ctx):
+            self.step = ctx.step
+            super().on_step_end(ctx)
+
+        def _fold_profiler_window(self):
+            programs, ops = super()._fold_profiler_window()
+            windows[(iteration, self.step)] = (programs, ops)
+            return programs, ops
+
+    return Windows(**kw)
+
+
 def restart_in_process(smoke, rows, names, main_mask):
     """``restart_path`` part 1: the Wrapper around config 4's detector workload at
     full width, a one-process NCCL group per iteration; iteration 0 raises inside a
@@ -1175,11 +1238,7 @@ def restart_in_process(smoke, rows, names, main_mask):
         Wrapper,
     )
     from tpu_resiliency_torch.inprocess.tools.inject_fault import InjectedFault
-    from tpu_resiliency_torch.integrations import (
-        LoopContext,
-        StragglerDetectionCallback,
-        run_training,
-    )
+    from tpu_resiliency_torch.integrations import LoopContext, run_training
     from tpu_resiliency_torch.ops import scoring_kernels as sk
     from tpu_resiliency_torch.platform import distributed
     from tpu_resiliency_torch.telemetry import Detector, MeshTelemetry
@@ -1189,27 +1248,10 @@ def restart_in_process(smoke, rows, names, main_mask):
     seen = {"memory": {}, "loop_launches": {}, "windows": {}, "groups": {}, "t": {}}
     spans = {"abort": [], "health_check": [], "reinit": []}
 
-    class Windows(StragglerDetectionCallback):
-        """Keeps the steps whose profiler window closed with samples."""
-
-        def _fold_profiler_window(self):
-            out = super()._fold_profiler_window()
-            seen["windows"].setdefault(self.iteration, []).append(self._step_count - 1)
-            return out
-
-    def timed(name, fn):
-        def call(state):
-            t0 = time.perf_counter()
-            try:
-                return fn(state)
-            finally:
-                spans[name].append((t0, time.perf_counter()))
-        return call
-
     @Wrapper(
         initialize=RetryController(max_iterations=3),
-        abort=timed("abort", AbortTorchDistributed()),
-        health_check=timed("health_check", CudaHealthCheck(timeout=30.0)),
+        abort=timed(spans, "abort", AbortTorchDistributed()),
+        health_check=timed(spans, "health_check", CudaHealthCheck(timeout=30.0)),
         soft_timeout=60.0, hard_timeout=90.0, heartbeat_timeout=60.0,
         barrier_timeout=120.0, completion_timeout=120.0, **RESTART_WRAPPER_KW,
     )
@@ -1248,9 +1290,8 @@ def restart_in_process(smoke, rows, names, main_mask):
             torch.cuda.synchronize()  # the step's loss read
             return state
 
-        cb = Windows(report_time_interval=3600.0, profile_programs_every=PROFILE_EVERY,
-                     profile_ops=True)
-        cb.iteration = it
+        cb = window_recorder(seen["windows"], it, report_time_interval=3600.0,
+                             profile_programs_every=PROFILE_EVERY, profile_ops=True)
         ctx = run_training(step, mt.init_state(), RESTART_STEPS, callbacks=[cb],
                            ctx=LoopContext(rank=0, world_size=1))
         seen["loop_launches"][it] = sk.fused_median_weights.launches_by_mode["loop"] - start_loop
@@ -1280,9 +1321,10 @@ def restart_in_process(smoke, rows, names, main_mask):
         raise AssertionError(f"loop launches per iteration {seen['loop_launches']}")
     if not np.array_equal(result["mask"], main_mask):
         raise AssertionError("iteration 1's final report flags other ranks than the main path")
+    windows = {it: sorted(st for i, st in seen["windows"] if i == it) for it in (0, 1)}
     want_windows = list(range(0, RESTART_STEPS, PROFILE_EVERY))
-    if seen["windows"].get(1) != want_windows:
-        raise AssertionError(f"iteration 1's profiler windows closed at {seen['windows'].get(1)}, "
+    if windows[1] != want_windows:
+        raise AssertionError(f"iteration 1's profiler windows closed at {windows[1]}, "
                              f"want {want_windows}")
     mem = seen["memory"]
     if abs(mem[1] - mem[0]) > 1 << 20:
@@ -1297,7 +1339,7 @@ def restart_in_process(smoke, rows, names, main_mask):
         ranks=R, signals=S, window=W, steps_per_iteration=RESTART_STEPS,
         fault_step=RESTART_FAULT_STEP, iterations=[0, 1],
         loop_launches_by_iteration=seen["loop_launches"],
-        profiler_windows_by_iteration=seen["windows"],
+        profiler_windows_by_iteration=windows,
         groups=[{"port": g["port"], "backend": g["backend"], "all_reduce": g["all_reduce"]}
                 for g in (g0, g1)],
         abort_method=distributed.last_abort_method,
@@ -2206,6 +2248,487 @@ def injob_path(smoke):
     return cold_loop + warm_loop + layered_loop
 
 
+MODEL_LAYERS = 2  # Llama-3-8B's widths, cut in depth only, as checkpoint_path cuts it
+MODEL_PARAMS = 1_486_901_248  # 2 x 218,112,000 + embed and lm_head 525,336,576 each + 4096
+MODEL_SEQ = 2048  # batch 1 x 2048 tokens
+MODEL_STEPS = 30
+MODEL_SAVE_EVERY = 10  # the local tier saves after 10 completed steps
+MODEL_FAULT_STEP = 15  # iteration 0 raises in this step (0-based), before its update
+MODEL_NOTICE_STEP = 18  # the process SIGTERMs itself in this step (25 would drain a
+# second 17.8 GB local save at 20 first: cut to keep the phase within its time)
+MODEL_PROFILE_EVERY = 10  # the straggler callback's profiled steps; the health reports
+# Step 0's bf16 loss against an f32 forward of the same weights: 1.4e-5 apart on the
+# H100 80GB HBM3 at 700 W (PERF.md); a forward of float8_e5m2-rounded weights must lie
+# outside it.
+MODEL_BF16_RTOL = 1e-4
+MODEL_BUDGET_S = 150.0  # the phase's share of the script's time (ROADMAP ground rules)
+MODEL_SIGNALS = 1024  # the Detector's columns: every kernel of a train step is an op/ signal
+MOE_STEPS = 20
+MOE_BATCH = (8, 512)
+#: model_path: a fresh interpreter, started with the phase so that its start-up
+#: overlaps the training, loads the preemption container onto the device once the
+#: iteration to load arrives on its standard input. argv: root, device.
+MODEL_CHILD = """
+import json, sys, time
+
+import torch
+
+import chip_smoke as cs
+from tpu_resiliency_torch.checkpoint.local_manager import LocalCheckpointManager
+
+root, dev = sys.argv[1], torch.device(sys.argv[2])
+print("READY", flush=True)
+iteration = int(sys.stdin.readline())
+t0 = time.perf_counter()
+mgr = LocalCheckpointManager(root, rank=0)
+tree, meta = mgr.load_tree(iteration, device=dev)
+cs.synchronize(torch, dev)
+load_s = time.perf_counter() - t0
+devices = sorted({str(t.device) for t in cs.ckpt_leaves(tree)})
+digests = cs.leaf_digests(torch, tree)
+mgr.close()
+print("RESULT " + json.dumps({"iteration": meta["iteration"], "load_s": load_s,
+                              "count": tree["count"], "devices": devices,
+                              "digests": digests}), flush=True)
+"""
+
+
+def start_child(script: str, argv) -> subprocess.Popen:
+    """One fresh interpreter running ``script`` from this checkout, its standard input
+    and output piped (the environment of :func:`run_children`)."""
+    import os
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here), TPU_RESILIENCY_LOG_LEVEL="WARNING")
+    for k in ("RANK", "WORLD_SIZE", "TPU_RESILIENCY_STORE_PORT", "TPU_RESILIENCY_STORE_HOST"):
+        env.pop(k, None)
+    return subprocess.Popen([sys.executable, "-c", script, *map(str, argv)], cwd=here, env=env,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def leaf_digests(torch, tree) -> list[str]:
+    """SHA-256 of every tensor leaf's bytes, in the checkpoint's leaf order, each leaf
+    copied to the host and hashed on a thread of its own (hashlib releases the GIL)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_resiliency_torch.checkpoint.state_dict import tree_flatten
+
+    leaves = [t for t in tree_flatten(tree)[0] if hasattr(t, "data_ptr")]
+
+    def digest(t):
+        host = t.detach().to("cpu").contiguous()
+        return hashlib.sha256(host.view(torch.uint8).numpy()).hexdigest()
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return list(pool.map(digest, leaves))
+
+
+class StepTimer:
+    """Milliseconds of each timed span: CUDA events on the card, the host clock on
+    the CPU (a rehearsal)."""
+
+    def __init__(self, torch, device):
+        self.torch, self.cuda = torch, device.type == "cuda"
+        self.spans = []
+
+    def __call__(self, fn):
+        if self.cuda:
+            a = self.torch.cuda.Event(enable_timing=True)
+            b = self.torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            self.spans.append((a, b))
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            self.spans.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def ms(self) -> list[float]:
+        if self.cuda:
+            self.torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in self.spans]
+        return list(self.spans)
+
+
+def moe_path(torch, dev, mcfg, moe_batch, gen) -> dict:
+    """``model_path`` (b): ``MOE_STEPS`` train steps of the MoE family on ``dev``; the
+    aux loss finite, no expert over ``capacity(T)`` tokens of a row in any layer, the
+    loss falling. Returns the fields of the phase's line."""
+    from tpu_resiliency_torch.models import moe
+
+    mmodel = moe.MoE(mcfg, seed=9, device=dev)
+    mtokens = torch.randint(0, mcfg.vocab_size, moe_batch, generator=gen).to(dev)
+    mstep, minit = moe.make_train_step(mcfg)
+    mopt = minit(mmodel)
+    mtimer = StepTimer(torch, dev)
+    mlosses = [float(mtimer(lambda: mstep(mmodel, mopt, mtokens))[2]) for _ in range(MOE_STEPS)]
+    routed = []
+    route = moe._route
+
+    def spy(c, y, w):
+        out = route(c, y, w)
+        routed.append(out[0])
+        return out
+
+    moe._route = spy
+    try:
+        with torch.no_grad():
+            _, aux = mmodel(mtokens)
+    finally:
+        moe._route = route
+    cap = mcfg.capacity(moe_batch[1])
+    most = max(int(d.sum(dim=(1, 3)).max()) for d in routed)  # tokens per (row, expert)
+    if not (np.isfinite(float(aux)) and most <= cap and len(routed) == mcfg.n_layers
+            and mlosses[-1] < mlosses[0]):
+        raise AssertionError(f"MoE: aux {float(aux)}, most tokens per expert and row {most} "
+                             f"(capacity {cap}), losses {mlosses}")
+    moe_ms = mtimer.ms()[1:]
+    del mmodel, mopt, routed
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(d_model=mcfg.d_model, layers=mcfg.n_layers, experts=mcfg.n_experts,
+                top_k=mcfg.top_k, vocab=mcfg.vocab_size, batch=list(moe_batch),
+                steps=MOE_STEPS, losses=mlosses, aux=float(aux), capacity=cap,
+                most_tokens_per_expert_row=most,
+                ms_per_step_median=statistics.median(moe_ms),
+                tokens_per_s=moe_batch[0] * moe_batch[1] / (statistics.median(moe_ms) / 1e3))
+
+
+def model_path(smoke, device="cuda", dense=None, moe_cfg=None, seq=MODEL_SEQ,
+               moe_batch=MOE_BATCH, ranks=R, bf16_rtol=MODEL_BF16_RTOL):
+    """Phase 15: the MoE family, then the dense model at Llama-3-8B's width (2 layers)
+    trained under the Wrapper with the straggler, local-checkpoint and preemption
+    callbacks (see the module's docstring). ``device``, ``dense``, ``moe_cfg``, the
+    sizes and the bf16 loss's tolerance let it rehearse on the CPU at a small size.
+    Returns the ``loop`` launches of the dense run."""
+    import dataclasses
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    import warnings
+
+    import torch
+
+    from tpu_resiliency_torch.checkpoint.local_manager import LocalCheckpointManager
+    from tpu_resiliency_torch.checkpoint.state_dict import PyTreeStateDict
+    from tpu_resiliency_torch.inprocess import (
+        AbortTorchDistributed,
+        CallWrapper,
+        CudaHealthCheck,
+        RetryController,
+        Wrapper,
+    )
+    from tpu_resiliency_torch.inprocess.tools.inject_fault import InjectedFault
+    from tpu_resiliency_torch.integrations import (
+        HierarchicalCheckpointCallback,
+        LoopContext,
+        PreemptionCheckpointCallback,
+        run_training,
+    )
+    from tpu_resiliency_torch.models import moe
+    from tpu_resiliency_torch.models import transformer as tfm
+    from tpu_resiliency_torch.ops import scoring_kernels as sk
+    from tpu_resiliency_torch.platform import distributed
+    from tpu_resiliency_torch.telemetry import MeshTelemetry
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    cfg = dense or tfm.TransformerConfig.llama3_8b(n_layers=MODEL_LAYERS)
+    gen = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen).to(dev)
+    # (b) first, alone on the card and before the dense run's saves load the host.
+    moe_fields = moe_path(torch, dev, moe_cfg or moe.MoEConfig(), moe_batch, gen)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = tfm.Transformer(cfg, seed=5, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    if dense is None and n_params != MODEL_PARAMS:
+        raise AssertionError(f"the 2-layer Llama-3-8B holds {n_params} parameters, not "
+                             f"{MODEL_PARAMS}")
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.no_grad():
+        loss_f32 = float(tfm.loss_fn(model, tokens, f32))
+        # The control: the f32 forward of the same weights rounded to float8_e5m2.
+        kept = [p.clone() for p in model.parameters()]
+        for p in model.parameters():
+            p.copy_(p.to(torch.float8_e5m2).float())
+        loss_control = float(tfm.loss_fn(model, tokens, f32))
+        for p, k in zip(model.parameters(), kept):
+            p.copy_(k)
+        del kept
+    train_step, init_opt = tfm.make_train_step(cfg)
+    opt = init_opt(model)
+    names = dict(model.named_parameters())
+
+    def train_tree():
+        """The train state as the reference's tree: parameters, AdamW's mu and nu
+        (optax's names for exp_avg, exp_avg_sq) and the step count."""
+        st = {n: opt.state[p] for n, p in names.items()}
+        return {"params": tfm.nest({n: p.detach() for n, p in names.items()}),
+                "mu": tfm.nest({n: s["exp_avg"] for n, s in st.items()}),
+                "nu": tfm.nest({n: s["exp_avg_sq"] for n, s in st.items()}),
+                "count": int(st["embed"]["step"])}
+
+    def load_train_tree(state, loaded):
+        with torch.no_grad():
+            for part, key in (("params", None), ("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                flat = tfm.flat_names(loaded[part])
+                for n, p in names.items():
+                    (p if key is None else opt.state[p][key]).copy_(flat[n])
+            for p in names.values():
+                opt.state[p]["step"].fill_(loaded["count"])
+        return state
+
+    # The job's health vector: config 4's telemetry of the 4096-rank job this rank
+    # belongs to, a row pushed each step and a report scored (the loop kernel) every
+    # profiled step.
+    data_np, _, _ = make_telemetry(seed=0, ranks=ranks)
+    rows = torch.tensor(np.ascontiguousarray(data_np.transpose(2, 0, 1)), device=dev)
+    del data_np
+    sig_names = tuple(f"sig{s}" for s in range(S))
+    health = MeshTelemetry(ranks, signal_names=sig_names, window=W, device=dev)
+
+    root = tempfile.mkdtemp(prefix="model-path-")
+    state_bytes = 3 * 4 * n_params
+    need_disk = 2 * state_bytes  # a container and the next one, before the older is pruned
+    if shutil.disk_usage(root).free < need_disk:
+        raise AssertionError(f"model_path: {shutil.disk_usage(root).free} B free in {root}, "
+                             f"needs {need_disk}")
+    mgr = LocalCheckpointManager(root, rank=0)
+    loader = start_child(MODEL_CHILD, [root, dev.type])
+    rec = {"losses": {}, "t": {}, "memory": {}, "log": {}, "windows": {}, "restore_s": None,
+           "host_available": {"phase_start": host_memory_available()}}
+    spans = {"abort": [], "health_check": [], "reinit": []}
+    timer = StepTimer(torch, dev)
+
+    empty_host_cache = getattr(torch._C, "_host_emptyCache", lambda: None)
+
+    def on_preemption(state, step):
+        t0 = time.perf_counter()
+        # The step-10 save is finalized: its idle staging buffer (pinned at the next
+        # power of two, 34 GB) goes back before the blocking engine pins each leaf.
+        mgr.staging.trim()
+        empty_host_cache()
+        rec["host_available"]["before_preemption_save"] = host_memory_available()
+        mgr.save(step + 1, PyTreeStateDict(train_tree()), is_async=False)
+        rec["t"]["saved"] = time.perf_counter()
+        rec["save_s"] = rec["t"]["saved"] - t0
+        rec["preempt_step"] = step
+
+    @Wrapper(
+        initialize=RetryController(max_iterations=3),
+        abort=timed(spans, "abort", AbortTorchDistributed()),
+        health_check=timed(spans, "health_check", CudaHealthCheck(timeout=30.0, device=dev)),
+        soft_timeout=90.0, hard_timeout=120.0, heartbeat_timeout=90.0,
+        barrier_timeout=180.0, completion_timeout=180.0,
+        # The preemption callback takes SIGTERM as its notice: the monitor kills with
+        # another signal.
+        termination_signal=int(signal.SIGKILL), **RESTART_WRAPPER_KW,
+    )
+    def train(call: CallWrapper):
+        it = call.iteration
+        t0 = time.perf_counter()
+        distributed.initialize(f"tcp://localhost:{free_port()}", 1, 0, timeout=60.0,
+                               device=dev)
+        spans["reinit"].append((t0, time.perf_counter()))
+        ctx = LoopContext(rank=0, world_size=1)
+        ckpt = HierarchicalCheckpointCallback(
+            local_manager=mgr, local_every=MODEL_SAVE_EVERY, to_state_dict=lambda s: train_tree(),
+            from_state_dict=load_train_tree, device=dev)
+        if it > 0:
+            opt.zero_grad(set_to_none=True)
+            t0 = time.perf_counter()
+            if not ckpt.restore_latest(ctx):
+                raise AssertionError("iteration 1 found no local checkpoint")
+            synchronize(torch, dev)
+            rec["restore_s"] = time.perf_counter() - t0
+        # A train step runs more kernels than the Detector's default 64 signals hold.
+        straggler = window_recorder(rec["windows"], it, report_time_interval=3600.0,
+                                    profile_programs_every=MODEL_PROFILE_EVERY, profile_ops=True,
+                                    max_signals=MODEL_SIGNALS, device=dev)
+        # A notice during an in-flight local save drains that save first.
+        preempt = PreemptionCheckpointCallback(on_preemption=on_preemption, ckpt_manager=mgr)
+        reports = []
+
+        def step(hstate, i):
+            if i == ctx.start_step:
+                synchronize(torch, dev)
+                rec["t"].setdefault("first_step", {})[it] = time.perf_counter()
+                rec["memory"][it] = torch.cuda.memory_allocated() if cuda else 0
+            profiled = (i - ctx.start_step) % MODEL_PROFILE_EVERY == 0  # the callback's window
+            if it == 0 and i == MODEL_FAULT_STEP:
+                mgr.maybe_finalize(blocking=True)  # the step-10 container is durable first
+                rec["t"]["raise"] = time.perf_counter()
+                raise InjectedFault(f"injected at step {i} of iteration {it}")
+            _, _, loss = timer(lambda: train_step(model, opt, tokens))
+            # The step's row of the health vector, then every 10th step its report:
+            # after the train step, away from the profiler window's first records.
+            before = sk.fused_median_weights.launches_by_mode["loop"]
+            health.push(hstate, rows[i % W])
+            if i % MODEL_PROFILE_EVERY == 0:
+                hstate, rep = health.generate_report(hstate)
+                reports.append(rep)
+            rec["losses"].setdefault(it, {})[i] = float(loss)  # the step's loss read
+            rec["log"][(it, i)] = (profiled, sk.fused_median_weights.launches_by_mode["loop"] - before)
+            if i == MODEL_NOTICE_STEP:
+                rec["t"]["signal"] = time.perf_counter()
+                os.kill(os.getpid(), signal.SIGTERM)  # the preemption notice
+            return hstate
+
+        out = run_training(step, health.init_state(), MODEL_STEPS,
+                           callbacks=[straggler, ckpt, preempt], ctx=ctx)
+        distributed.shutdown_ordered(call.coord.store, 0, 1, iteration=it)
+        return {"iteration": it, "stopped_at": out.step, "should_stop": out.should_stop,
+                "reports": len(reports),
+                "report_finite": all(np.isfinite(list(r.perf_scores.values())).all()
+                                     for r in reports)}
+
+    env_keys = ("RANK", "WORLD_SIZE", "TPU_RESILIENCY_STORE_HOST", "TPU_RESILIENCY_STORE_PORT")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", TPU_RESILIENCY_STORE_HOST="127.0.0.1",
+                      TPU_RESILIENCY_STORE_PORT=str(free_port()))
+    sk.reset_launches()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t_train = time.perf_counter()
+            result = train()
+            train_s = time.perf_counter() - t_train
+        loop_launches = sk.fused_median_weights.launches_by_mode["loop"]
+        nondeterministic = sorted({str(w.message).split(" does not have")[0][:120]
+                                   for w in caught if "deterministic" in str(w.message)})
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        peak_reserved = torch.cuda.max_memory_reserved() if cuda else 0
+        # The fresh interpreter loads the container while this process hashes its host
+        # copy of the state at the save (the loop stopped there).
+        empty_host_cache()  # the blocking save's pinned leaves
+        rec["host_available"]["before_fresh_load"] = host_memory_available()
+        if loader.stdout.readline().strip() != "READY":
+            raise AssertionError(f"the loading interpreter did not start: {loader.stderr.read()}")
+        loader.stdin.write(f"{rec['preempt_step'] + 1}\n")
+        loader.stdin.flush()
+        reader = threading.Thread(target=lambda: rec.update(child=loader.communicate(timeout=600.0)))
+        reader.start()
+        t0 = time.perf_counter()
+        rec["digests"] = leaf_digests(torch, train_tree())  # the host copy at the save
+        rec["host_copy_and_hash_s"] = time.perf_counter() - t0
+        del model, opt, names, rows, health
+        if cuda:
+            torch.cuda.empty_cache()
+        reader.join()
+    finally:
+        if loader.poll() is None and "child" not in rec:
+            loader.kill()
+            loader.wait()
+        torch.use_deterministic_algorithms(deterministic)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        mgr.close()
+        shutil.rmtree(root, ignore_errors=True)
+        empty_host_cache()
+
+    # -- the dense run's checks -------------------------------------------------
+    losses0, losses1 = rec["losses"].get(0, {}), rec["losses"].get(1, {})
+    if result["iteration"] != 1 or sorted(losses0) != list(range(MODEL_FAULT_STEP)):
+        raise AssertionError(f"iteration {result['iteration']}, iteration 0's steps {sorted(losses0)}")
+    replay = list(range(MODEL_SAVE_EVERY, MODEL_FAULT_STEP))
+    if sorted(losses1)[: len(replay)] != replay:
+        raise AssertionError(f"iteration 1 resumed at {min(losses1, default=None)}, not "
+                             f"{MODEL_SAVE_EVERY}")
+    replay_equal = all(losses1[i] == losses0[i] for i in replay)
+    if not replay_equal:
+        raise AssertionError(f"replayed losses differ: {[(losses0[i], losses1[i]) for i in replay]}"
+                             f" (nondeterministic ops: {nondeterministic})")
+    if not (result["should_stop"] and rec.get("preempt_step") == MODEL_NOTICE_STEP
+            and result["stopped_at"] == MODEL_NOTICE_STEP + 1):
+        raise AssertionError(f"the preemption save landed at {rec.get('preempt_step')}, the loop "
+                             f"stopped at {result['stopped_at']}")
+    out, err = rec["child"]
+    results = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+    if loader.returncode != 0 or not results:
+        raise AssertionError(f"the fresh interpreter failed to load the container: {err[-2000:]}")
+    loaded = json.loads(results[0][len("RESULT "):])
+    if loaded["digests"] != rec["digests"] or loaded["count"] != MODEL_NOTICE_STEP + 1:
+        bad = sum(a != b for a, b in zip(loaded["digests"], rec["digests"]))
+        raise AssertionError(f"the container loads {bad} leaves other than the state at the "
+                             f"save (count {loaded['count']})")
+    loss0 = losses0[0]
+    if abs(loss0 - loss_f32) > bf16_rtol * abs(loss_f32):
+        raise AssertionError(f"step 0's bf16 loss {loss0} against the f32 forward's {loss_f32}")
+    if abs(loss_control - loss_f32) <= bf16_rtol * abs(loss_f32):
+        raise AssertionError(f"the float8_e5m2 control's loss {loss_control} lies within "
+                             f"{bf16_rtol} of the f32 forward's {loss_f32}")
+    all_losses = [losses0[i] for i in sorted(losses0)] + [
+        losses1[i] for i in sorted(losses1) if i >= MODEL_FAULT_STEP]
+    if not all_losses[-1] < all_losses[0]:
+        raise AssertionError(f"the loss did not fall: {all_losses}")
+    profiled_launches = sum(n for p, n in rec["log"].values() if p)
+    samples_by_window = {key: (rec["log"][key][1], sum(len(ops.get(k, ())) for k in LOOP_KERNEL_FUNCTIONS),
+                               sum(map(len, ops.values())))
+                         for key, (_, ops) in rec["windows"].items()}
+    op_samples = sum(n for _, n, _ in samples_by_window.values())
+    if cuda and (op_samples != profiled_launches or op_samples == 0):
+        raise AssertionError(f"{op_samples} op/ samples of the loop kernel against "
+                             f"{profiled_launches} launches in profiled steps; by (iteration, "
+                             f"step): (launches, loop samples, kernel records) "
+                             f"{samples_by_window}")
+    if (cuda and loop_launches < 1) or not result["report_finite"]:
+        raise AssertionError(f"the health reports launched the loop kernel {loop_launches} "
+                             f"times, finite: {result['report_finite']}")
+    total_mem = torch.cuda.get_device_properties(dev).total_memory if cuda else 0
+    if cuda and peak_reserved >= total_mem:
+        raise AssertionError(f"peak reserved {peak_reserved} B reaches the card's {total_mem} B")
+    step_ms = timer.ms()
+    t = rec["t"]
+    (a0, a1), = [s for s in spans["abort"] if s[0] >= t["raise"]]
+    (h0, h1), = [s for s in spans["health_check"] if s[0] >= t["raise"]]
+    r0, r1 = spans["reinit"][1]
+    restart_s = t["first_step"][1] - t["raise"]
+    restart = {"raise_to_first_step": restart_s, "abort": a1 - a0, "health_check": h1 - h0,
+               "reinit": r1 - r0, "restore": rec["restore_s"],
+               "other": restart_s - (a1 - a0) - (h1 - h0) - (r1 - r0) - rec["restore_s"]}
+    steady = step_ms[1:]
+    dense_fields = dict(
+        config="llama3_8b" if dense is None else "given", layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, params=n_params, batch=[1, seq], dtype=str(cfg.dtype),
+        train_seconds=train_s, loss_f32_step0=loss_f32, loss_bf16_step0=loss0,
+        loss_e5m2_control_step0=loss_control, bf16_rtol=bf16_rtol, losses=all_losses,
+        replayed_steps=replay, replay_bit_equal=replay_equal,
+        nondeterministic_ops_warned=nondeterministic,
+        ms_per_step_median=statistics.median(steady), ms_per_step_min=min(steady),
+        tokens_per_s=seq / (statistics.median(steady) / 1e3),
+        peak_memory_allocated=peak, peak_memory_reserved=peak_reserved,
+        memory_first_step=rec["memory"], restart_wall_s=restart,
+        loop_launches=loop_launches, loop_launches_in_profiled_steps=profiled_launches,
+        loop_op_samples=op_samples, profiled_steps=sorted(s for _, s in rec["windows"]),
+        kernel_records_by_window={f"{i}/{st}": v[2] for (i, st), v in samples_by_window.items()},
+        preempt_step=rec["preempt_step"], signal_to_finalized_s=t["saved"] - t["signal"],
+        preemption_save_s=rec["save_s"], host_copy_and_hash_s=rec["host_copy_and_hash_s"],
+        host_memory_available=rec["host_available"],
+        fresh_interpreter={"load_s": loaded["load_s"], "devices": loaded["devices"],
+                           "leaves": len(loaded["digests"]), "sha256_equal": True},
+    )
+    seconds = time.perf_counter() - t_phase
+    smoke.emit("model_path", seconds=seconds, budget_s=MODEL_BUDGET_S, steps=MODEL_STEPS,
+               save_every=MODEL_SAVE_EVERY, fault_step=MODEL_FAULT_STEP,
+               notice_step=MODEL_NOTICE_STEP, profile_every=MODEL_PROFILE_EVERY,
+               health_ranks=ranks, dense=dense_fields, moe=moe_fields)
+    return loop_launches
+
+
 def main() -> int:
     import os
 
@@ -2215,7 +2738,10 @@ def main() -> int:
         # environment: that is how reap_strays tells this run's processes from others.
         import uuid
 
-        os.execve(sys.executable, sys.orig_argv, dict(os.environ, **{RUN_ENV: uuid.uuid4().hex}))
+        # cuBLAS reads its workspace setting when it starts: model_path's deterministic
+        # replay needs it fixed (torch.use_deterministic_algorithms).
+        os.execve(sys.executable, sys.orig_argv, dict(
+            os.environ, **{RUN_ENV: uuid.uuid4().hex, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}))
 
     import torch
 
@@ -2688,6 +3214,10 @@ def main() -> int:
     # 14. in-job restart path: the workers' own loop launches ------------------------
     torch.cuda.empty_cache()
     path_launches["loop"] += injob_path(smoke)
+
+    # 15. model path: the health reports' loop launches ------------------------------
+    torch.cuda.empty_cache()
+    path_launches["loop"] += model_path(smoke)
 
     kernels = []
     for mode in sk.MODES:

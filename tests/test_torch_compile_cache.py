@@ -6,7 +6,10 @@ compile a JAX program in a worker; the port's cache is torch.compile's, answered
 below: a worker applying the launcher's variable gets Inductor's and Triton's cache
 directories under the cache dir and records one ``compile_cache`` event, whose outcome
 follows the sweep (``hit`` over an intact entry, ``miss_corrupt`` over a damaged one),
-and the Wrapper applies it at engine start as the reference's does.
+and the Wrapper applies it at engine start as the reference's does. The sweep walks
+``inductor/`` and ``triton/``: on the layout a CPU ``torch.compile`` writes (gcc), a cold
+compile is a ``miss``, a warm one a ``hit``, and a torn ``fxgraph`` entry is purged
+(``miss_corrupt``), as the reference's JIT tests assert them for JAX's cache.
 """
 
 import json
@@ -101,3 +104,68 @@ def test_the_wrapper_applies_the_cache_at_engine_start(tmp_path):
     out, cc = _run(tmp_path, WRAPPER_SNIPPET, cache, "wrap", port)
     assert f"CACHE {cache / 'inductor'}" in out
     assert len(cc) == 1 and cc[0]["outcome"] == "miss", cc
+
+
+COMPILE_SNIPPET = """
+import sys
+from tpu_resiliency_torch.platform import device
+device.apply_platform_env()
+import torch
+f = torch.compile(lambda x: (x.sin() * 2 + 1).sum())
+x = torch.linspace(-1.0, 1.0, 16)
+print("VALUE " + repr(float(f(x))) + " " + repr(float((x.sin() * 2 + 1).sum())))
+"""
+
+
+def _compile(tmp_path, cache, tag):
+    out, cc = _run(tmp_path, COMPILE_SNIPPET, cache, tag)
+    got, want = map(float, out.split("VALUE ", 1)[1].split())
+    assert abs(got - want) <= 1e-5 * abs(want), out
+    assert len(cc) == 1, cc
+    return cc[0]
+
+
+@pytest.fixture(scope="module")
+def compiled_cache(tmp_path_factory):
+    """A cache dir that one CPU ``torch.compile`` filled (Inductor's own layout:
+    hashed subdirectories, ``fxgraph/``, ``aotautograd/``, ``locks/``), and its cold
+    event."""
+    tmp = tmp_path_factory.mktemp("torch_compile")
+    cache = tmp / "cc"
+    return cache, _compile(tmp, cache, "cold")
+
+
+def _entry_files(cache):
+    return sorted(str(p.relative_to(cache)) for p in (cache / "inductor").rglob("*")
+                  if p.is_file() and p.suffix != ".lock")
+
+
+def test_a_cold_torch_compile_is_a_miss_that_leaves_entries_under_inductor(compiled_cache):
+    cache, cold = compiled_cache
+    assert cold["outcome"] == "miss" and cold["entries"] == 0, cold
+    entries = _entry_files(cache)
+    assert any(e.startswith("inductor/fxgraph/") for e in entries), entries
+    manifest = compile_cache.read_manifest(str(cache))
+    assert sorted(manifest) == entries  # the exit-time manifest, keyed by relative path
+    assert not any(k.endswith(".lock") for k in manifest)
+
+
+@pytest.mark.parametrize("damage,outcome", [(False, "hit"), (True, "miss_corrupt")])
+def test_a_warm_torch_compile_cache_is_swept_as_the_reference_sweeps(
+        compiled_cache, tmp_path, damage, outcome):
+    import shutil
+
+    src, _ = compiled_cache
+    cache = tmp_path / "cc"
+    shutil.copytree(src, cache)
+    entries = _entry_files(cache)
+    victim = cache / next(e for e in entries if e.startswith("inductor/fxgraph/"))
+    if damage:
+        with open(victim, "r+b") as f:
+            f.truncate(max(1, victim.stat().st_size // 2))
+    ev = _compile(tmp_path, cache, "warm")
+    assert ev["outcome"] == outcome, ev
+    assert ev["purged"] == int(damage)
+    assert ev["entries"] == len(entries) - int(damage) and ev["bytes"] > 0, ev
+    assert ev["unverified"] == 0, ev
+    assert victim.exists() is (not damage)

@@ -14,6 +14,8 @@ import torch
 
 import tpu_resiliency_torch
 from tpu_resiliency_torch.inprocess import CudaHealthCheck
+from tpu_resiliency_torch.models.moe import MoE, MoEConfig
+from tpu_resiliency_torch.models.transformer import Transformer, TransformerConfig, rope_tables
 from tpu_resiliency_torch.platform import device as port_device
 from tpu_resiliency_torch.telemetry.convert import telemetry_state_from_numpy
 from tpu_resiliency_torch.telemetry.detector import Detector
@@ -125,10 +127,25 @@ FT_MODULES = (
 )
 
 
+#: Modules of the model slice, each imported by the subprocess check.
+MODEL_MODULES = (
+    "tpu_resiliency_torch.models",
+    "tpu_resiliency_torch.models.transformer",
+    "tpu_resiliency_torch.models.moe",
+    "tpu_resiliency_torch.parallel",
+    "tpu_resiliency_torch.parallel.mesh",
+    "tpu_resiliency_torch.integrations.preemption",
+    "tpu_resiliency_torch.integrations.dcp_adapter",
+    "tpu_resiliency_torch.examples.preemption_train",
+)
+
+ALL_SLICES = SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES + FT_MODULES + MODEL_MODULES
+
+
 def test_importing_every_module_loads_no_jax():
     names = ["tpu_resiliency_torch", *_module_names()]
     assert "tpu_resiliency_torch.ops.scoring_kernels" in names
-    assert set(SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES + FT_MODULES) <= set(names)
+    assert set(ALL_SLICES) <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -150,7 +167,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     files = {str(p.relative_to(REPO_ROOT).with_suffix("")).replace("/", ".")
              for p in PACKAGE_DIR.rglob("*.py")}
     assert {m if m in files else m + ".__init__"
-            for m in SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES + FT_MODULES} <= files
+            for m in ALL_SLICES} <= files
     for path in PACKAGE_DIR.rglob("*.py"):
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -179,6 +196,9 @@ ENTRY_POINTS = {
     "resolve_device": lambda **kw: port_device.resolve_device(**kw),
     "CudaRuntimeCheck": lambda **kw: CudaRuntimeCheck(
         device_count=lambda: 1, mem_get_info=lambda index: (1, 2), **kw),
+    "Transformer": lambda **kw: Transformer(TransformerConfig.tiny(), **kw).embed,
+    "MoE": lambda **kw: MoE(MoEConfig.tiny(), **kw).embed,
+    "rope_tables": lambda **kw: rope_tables(TransformerConfig.tiny(), 4, **kw)[0],
 }
 
 

@@ -1,6 +1,6 @@
 """The health-vector decisions loop of both packages, side by side: the reference's
 own scenario (``tests/inprocess/test_health_loop.py``'s ``body``) and the same
-scenario through the port run at once, each world on its own store. A
+scenario through the port, each world on its own store, the reference's first. A
 slow-but-alive rank's section timings flow through the Detector (the port's with
 ``device="cpu"``) → ``HealthVectorPolicy`` → the coordination store's degraded set
 → ``DemoteDegraded`` benches it as a spare at the next restart round of the
@@ -15,6 +15,7 @@ import queue
 import time
 
 from tests.inprocess import test_health_loop as reference
+from tests.test_torch_inprocess_faults import scheduled_first
 from tests.test_torch_inprocess_wrap import fast_wrapper, free_port, pkg
 
 STEPS_PER_ROUND = 6
@@ -87,38 +88,46 @@ def _health_loop_body(rank, world, port, q):
     q.put((rank, train()))
 
 
+def _run_world(ctx, body, world):
+    """Start ``world`` ranks of ``body`` on a fresh store port and collect each rank's
+    result, the ranks joined (or ended) before it returns."""
+    port, q = free_port(), ctx.Queue()
+    procs = [ctx.Process(target=body, args=(r, world, port, q)) for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + 180
+    try:
+        while time.monotonic() < deadline and len(results) < world:
+            if all(not p.is_alive() for p in procs) and q.empty():
+                break
+            try:
+                r, payload = q.get(timeout=0.5)
+                results[r] = payload
+            except queue.Empty:
+                pass
+    finally:
+        for p in procs:
+            p.join(timeout=20.0)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5.0)
+    return results
+
+
 def test_measured_slowness_demotes_through_the_full_loop():
+    """The verdict rests on measured sleeps (80 ms against 8 ms per step), so the two
+    worlds do not run at once: the reference's runs to its end first, then the
+    port's, each with its processes scheduled ahead of the suite's where the host
+    allows (``scheduled_first``), as the hang test's pair runs."""
     world = 3
     ctx = mp.get_context("spawn")
     runs = {}
-    for name, body in (("reference", reference.body), ("port", _health_loop_body)):
-        port, q = free_port(), ctx.Queue()
-        procs = [ctx.Process(target=body, args=(r, world, port, q)) for r in range(world)]
-        for p in procs:
-            p.start()
-        runs[name] = (q, procs, {})
-    deadline = time.monotonic() + 180
-    try:
-        while time.monotonic() < deadline:
-            waiting = [v for v in runs.values() if len(v[2]) < world
-                       and not (all(not p.is_alive() for p in v[1]) and v[0].empty())]
-            if not waiting:
-                break
-            for q, _, results in waiting:
-                try:
-                    r, payload = q.get(timeout=0.5)
-                    results[r] = payload
-                except queue.Empty:
-                    pass
-    finally:
-        for _, procs, _ in runs.values():
-            for p in procs:
-                p.join(timeout=20.0)
-            for p in procs:
-                if p.is_alive():
-                    p.terminate()
-                    p.join(timeout=5.0)
-    want, results = runs["reference"][2], runs["port"][2]
+    with scheduled_first():
+        for name, body in (("reference", reference.body), ("port", _health_loop_body)):
+            runs[name] = _run_world(ctx, body, world)
+    want, results = runs["reference"], runs["port"]
     assert results == want, f"port {results} != reference {want}"
     assert results[1] is None, results
     assert results[0] == ("ok", 1, "ACTIVE", 2), results

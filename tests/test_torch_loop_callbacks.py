@@ -139,6 +139,13 @@ def test_straggler_callback_profiles_regions_and_ops():
     assert cb._program_profiler is not None and not cb._program_profiler.active
 
 
+def test_max_signals_reaches_the_detector():
+    seen = []
+    cb = StragglerDetectionCallback(report_time_interval=0.0, max_signals=256, device="cpu")
+    run_training(lambda s, i: seen.append(Detector.max_signals) or s, 0, 3, callbacks=[cb])
+    assert seen == [256] * 3
+
+
 def test_a_failed_step_does_not_leak_the_profiler_window():
     cb = StragglerDetectionCallback(report_time_interval=1e9, profile_programs_every=1,
                                     device="cpu")

@@ -21,6 +21,7 @@ PORT_DIR = Path(tpu_resiliency_torch.__file__).parent
 #: Reference modules ported under another name.
 RENAMED = {
     "tpu_resiliency.ops.scoring_pallas": "tpu_resiliency_torch.ops.scoring_kernels",
+    "tpu_resiliency.integrations.orbax_adapter": "tpu_resiliency_torch.integrations.dcp_adapter",
 }
 
 #: Names of ported reference modules that the port answers by other means.
@@ -31,6 +32,7 @@ ANSWERED = {
     "tpu_resiliency.inprocess.health_check.JaxHealthCheck": "CudaHealthCheck",
     "tpu_resiliency.inprocess.abort.AbortJaxDistributed": "AbortTorchDistributed",
     "tpu_resiliency.watchdog.health.TpuRuntimeCheck": "CudaRuntimeCheck",
+    "tpu_resiliency.integrations.orbax_adapter.OrbaxCheckpointCallback": "DcpCheckpointCallback",
 }
 
 #: Reference modules with no counterpart in the port yet, by package.
@@ -40,20 +42,11 @@ NOT_YET_PORTED = (
     "tpu_resiliency.fleet.aggregator",
     "tpu_resiliency.fleet.registry",
     "tpu_resiliency.fleet.server",
-    # integrations
-    "tpu_resiliency.integrations.orbax_adapter",
-    "tpu_resiliency.integrations.preemption",
     # launcher
     "tpu_resiliency.launcher.autoscale",
     "tpu_resiliency.launcher.incident",
     "tpu_resiliency.launcher.telemetry",
-    # models
-    "tpu_resiliency.models",
-    "tpu_resiliency.models.moe",
-    "tpu_resiliency.models.transformer",
     # parallel
-    "tpu_resiliency.parallel",
-    "tpu_resiliency.parallel.mesh",
     "tpu_resiliency.parallel.pipeline",
     "tpu_resiliency.parallel.ring_attention",
     # telemetry
@@ -179,6 +172,19 @@ FT_SLICE = (
 )
 
 
+#: The modules of the model slice (the mesh, the dense and MoE families, preemption
+#: agreement and the global checkpoint tier): each has its counterpart.
+MODEL_SLICE = (
+    "tpu_resiliency.models",
+    "tpu_resiliency.models.transformer",
+    "tpu_resiliency.models.moe",
+    "tpu_resiliency.parallel",
+    "tpu_resiliency.parallel.mesh",
+    "tpu_resiliency.integrations.preemption",
+    "tpu_resiliency.integrations.orbax_adapter",
+)
+
+
 def _answered(package: str) -> dict[str, str]:
     """ANSWERED's reference names exported by ``package``, mapped to their answers."""
     return {name.rsplit(".", 1)[1]: answer for name, answer in ANSWERED.items()
@@ -251,6 +257,12 @@ def test_the_fault_tolerance_slice_is_ported(module):
     assert has_counterpart(module) and module not in NOT_YET_PORTED
 
 
+@pytest.mark.parametrize("module", MODEL_SLICE)
+def test_the_model_slice_is_ported(module):
+    assert module in reference_modules()
+    assert has_counterpart(module) and module not in NOT_YET_PORTED
+
+
 def test_renamed_modules_exist_on_both_sides():
     for ref, port in RENAMED.items():
         assert ref in reference_modules()
@@ -272,12 +284,24 @@ def test_the_port_exports_the_ported_integration_names():
     import tpu_resiliency.integrations as ref
     import tpu_resiliency_torch.integrations as port
 
-    not_yet = {
-        "OrbaxCheckpointCallback": "tpu_resiliency.integrations.orbax_adapter",
-        "PreemptionCheckpointCallback": "tpu_resiliency.integrations.preemption",
-    }
-    assert all(module in NOT_YET_PORTED for module in not_yet.values())
-    assert sorted(set(ref.__all__) - set(port.__all__)) == sorted(not_yet)
+    answered = _answered("tpu_resiliency.integrations")
+    assert answered == {"OrbaxCheckpointCallback": "DcpCheckpointCallback"}
+    not_yet = sorted(set(ref.__all__) - set(port.__all__) - set(answered))
+    assert not not_yet, f"reference integration names with no port export: {not_yet}"
+    assert sorted(set(port.__all__) - set(ref.__all__)) == sorted(answered.values())
+    for name, answer in answered.items():
+        assert not hasattr(port, name) and callable(getattr(port, answer))
+
+
+def test_the_port_exports_every_reference_model_name():
+    import tpu_resiliency.models as ref
+    import tpu_resiliency.parallel as ref_parallel
+    import tpu_resiliency_torch.models as port
+    import tpu_resiliency_torch.parallel as port_parallel
+
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    assert all(getattr(port, name) is not None for name in port.__all__)
+    assert port_parallel.__all__ == ref_parallel.__all__ == ["mesh"]
 
 
 def test_the_port_exports_every_reference_checkpoint_name():

@@ -33,7 +33,114 @@ OWN_DOCSTRING = {
     "launcher/proc.py": "workers are CUDA processes, not JAX ones",
     "launcher/launch.py": "names the port's CLI and the flags it refuses",
     "integrations/ft_callbacks.py": "the loop protocol is no longer JAX's",
+    "integrations/preemption.py": "the agreement runs over the process group",
 }
+
+#: The port's preemption notice: the flag SIGTERM sets and the gloo group of the
+#: agreement (``integrations/preemption.py``).
+PREEMPTION_NOTICE = '''#: Set by the SIGTERM handler (or :func:`notify`); cleared by :func:`rescind`.
+_notice = threading.Event()
+_handler_installed = False
+#: The gloo group the agreement runs on, for the default group it was made beside.
+_agreement: dict = {}
+
+
+def install_notice_handler() -> bool:
+    """Make SIGTERM set this process's preemption flag instead of ending it. Only
+    the main thread may install a handler: elsewhere this logs and returns False."""
+    global _handler_installed
+    if _handler_installed:
+        return True
+    try:
+        signal.signal(signal.SIGTERM, _on_notice)
+    except ValueError:
+        log.warning("preemption notice handler not installed: not the main thread")
+        return False
+    _handler_installed = True
+    return True
+
+
+def _on_notice(signum, frame) -> None:
+    _notice.set()
+
+
+def notify() -> None:
+    """Raise this process's preemption flag, as the notice's signal does."""
+    _notice.set()
+
+
+def rescind() -> None:
+    """Clear this process's preemption flag: the scheduler withdrew the notice."""
+    _notice.clear()
+
+
+def agreement_group():
+    """The gloo group the agreement reduces over: the default group when it is gloo,
+    else a gloo group of the default group's ranks, made once per default group
+    (every rank must reach the first call together, as the callback's first step
+    does)."""
+    import torch.distributed as dist
+
+    world = dist.group.WORLD
+    if dist.get_backend(world) == "gloo":
+        return world
+    if _agreement.get("world") is not world:
+        _agreement.update(world=world, group=dist.new_group(backend="gloo"))
+    return _agreement["group"]
+
+
+'''
+
+PREEMPTION_CLASS_DOC = '''    """Agree each step, over the process group, on whether any rank holds a
+    preemption notice; on the agreed step, run ``on_preemption(state, step)``
+    (typically a blocking save — the grace window is short) and cooperatively stop
+    the loop.
+
+    ``stop_on_preemption=False`` keeps training (save-and-continue — useful when
+    the scheduler sometimes cancels the reclamation).
+
+    ``grace_steps=N`` defers the drain/save/stop by N steps after the notice is first
+    agreed — the **rescind window**. A notice that clears (:func:`rescind` on every
+    rank that held it) before the window elapses emits one ``preemption_rescinded``
+    event, cancels the pending deferred drain (it simply never runs), and re-arms the
+    callback for a later real notice. The default (0) acts immediately.
+
+    ``ckpt_manager`` (anything with ``maybe_finalize(blocking=True)`` — a
+    :class:`~tpu_resiliency_torch.checkpoint.local_manager.LocalCheckpointManager`,
+    an :class:`~tpu_resiliency_torch.checkpoint.async_ckpt.AsyncCheckpointer`, or a
+    bare callable) defers acting on a notice that lands DURING an in-flight async
+    save: the callback first drains the pending save to its commit/rename, THEN runs
+    ``on_preemption``. Without the drain, the grace-window save races the background
+    writer.
+
+    The notice is SIGTERM, handled from the first agreement on; call
+    :func:`install_notice_handler` earlier to take notices before the first step.
+
+    After the loop stops, tear the process group down coordinator-last before
+    process exit — :func:`platform.distributed.shutdown_ordered` (store-backed,
+    deterministic) or :func:`shutdown_graceful` (store-free) — or a peer's
+    teardown can race the rendezvous host's death.
+    """
+
+'''
+
+PREEMPTION_REACHED = '''    @staticmethod
+    def _reached(step: int) -> bool:
+        """Whether any rank holds a notice, agreed at this step by every rank: one
+        ``all_reduce(MAX)`` of the host flag on the gloo group."""
+        from tpu_resiliency_torch.platform.distributed import client_active
+
+        if not client_active():
+            return False  # no process group: nothing to agree with
+        import torch.distributed as dist
+
+        install_notice_handler()
+
+        flag = torch.tensor([1 if _notice.is_set() else 0], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=agreement_group())
+        return bool(flag.item())
+
+'''
 
 JAX_HEALTH_CHECK = '''@dataclasses.dataclass
 class JaxHealthCheck(HealthCheck):
@@ -590,6 +697,54 @@ def compiler_cache_env(path: str) -> dict[str, str]:
                     r'        return stats\n    import atexit', re.S),
          '    stats["enabled"] = True\n    os.environ.update(compiler_cache_env(path))\n'
          '    import atexit', "the caches are torch.compile's, set through its variables"),
+        (re.compile(r"#: process-level latch.*?        return \[\]\n", re.S),
+         '''#: torch.compile's cache directories under the cache dir (``compiler_cache_env``):
+#: every file in them, at any depth, is an entry
+_COMPILER_DIRS = ("inductor", "triton")
+
+#: files in the compiler directories that are no entries (Inductor's file locks)
+_NOT_ENTRY_SUFFIXES = (".lock",)
+
+#: process-level latch: the cache is applied (and its event recorded) once
+_applied: Optional[dict] = None
+
+
+def _entry_names(path: str) -> list[str]:
+    """The entries under ``path``, each named by its path relative to ``path``:
+    top-level ``*-cache`` files, then every file below the compiler directories."""
+    try:
+        names = [n for n in os.listdir(path) if n.endswith(_ENTRY_SUFFIX)]
+    except OSError:
+        return []
+    for sub in _COMPILER_DIRS:
+        for dirpath, _, files in os.walk(os.path.join(path, sub)):
+            rel = os.path.relpath(dirpath, path).replace(os.sep, "/")
+            names.extend(f"{rel}/{f}" for f in files if not f.endswith(_NOT_ENTRY_SUFFIXES))
+    return sorted(names)
+''', "Inductor and Triton keep their entries in subdirectories: scan, sweep and the "
+           "manifest walk them, keyed by the path relative to the cache dir"),
+        ('            for victim in (p, p[: -len(_ENTRY_SUFFIX)] + "-atime"):',
+         '            stamp = [p[: -len(_ENTRY_SUFFIX)] + "-atime"] if "/" not in name else []\n'
+         '            for victim in (p, *stamp):',
+         "only JAX's top-level entries have an -atime stamp"),
+    ),
+    "integrations/preemption.py": (
+        ("import time\nfrom typing import Any, Callable, Optional\n\n"
+         "from tpu_resiliency_torch.integrations.loop",
+         "import signal\nimport threading\nimport time\nfrom typing import Any, Callable, Optional\n\n"
+         "import torch\n\nfrom tpu_resiliency_torch.integrations.loop",
+         "the notice's signal handler, its flag, and the flag's tensor"),
+        ("log = get_logger(__name__)\n\n\nclass PreemptionCheckpointCallback(Callback):\n",
+         "log = get_logger(__name__)\n\n" + PREEMPTION_NOTICE
+         + "class PreemptionCheckpointCallback(Callback):\n",
+         "the host flag that SIGTERM sets, and the gloo group the ranks agree over"),
+        (re.compile(r'    """Poll the coordination service.*?spurious fatal\.\n    """\n\n', re.S),
+         PREEMPTION_CLASS_DOC.replace("\\", "\\\\"),
+         "the agreement is the process group's, not the coordination service's"),
+        (re.compile(r"    @staticmethod\n    def _reached\(step: int\) -> bool:.*?"
+                    r"reached_preemption_sync_point\(step\)\)\n\n", re.S),
+         PREEMPTION_REACHED.replace("\\", "\\\\"),
+         "multihost_utils' sync point becomes an all_reduce(MAX) of the flag on gloo"),
     ),
     "launcher/park.py": (
         ('    ap.add_argument("--preload", default="jax")',

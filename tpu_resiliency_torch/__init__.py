@@ -33,6 +33,12 @@ rendezvous, worker groups and warm spares), ``platform.ipc`` over ``platform.wir
 ``platform.compile_cache`` (torch.compile's caches across restarts), and the worker
 examples ``examples.resilient_training`` and ``examples.layered_restart``.
 
+The model slice: ``models`` (the dense Llama-style ``Transformer`` and the ``MoE``,
+trained with ``torch.optim.AdamW``), ``parallel.mesh`` over ``platform.device.make_mesh``
+(DTensor placements over dp, tp and ep), ``integrations.preemption`` (every rank saves
+at one agreed step after a SIGTERM notice), ``integrations.dcp_adapter`` (the global
+checkpoint tier on ``torch.distributed.checkpoint``) and ``examples.preemption_train``.
+
 Entry points run on the CUDA card by default and raise when there is none; pass
 ``device="cpu"`` to run the plain PyTorch path on the CPU.
 """

@@ -1,9 +1,11 @@
 """Training-loop callbacks (the ``ptl_resiliency`` analogue): the loop protocol, the
-fault-tolerance callbacks (heartbeats, sections), the straggler-detection callback and
-the hierarchical checkpoint callback. The preemption and Orbax callbacks of the JAX
-package are not ported yet (see ROADMAP.md)."""
+fault-tolerance callbacks (heartbeats, sections), the straggler-detection callback, the
+hierarchical checkpoint callback, preemption-synchronized saves, and the global
+checkpoint tier on ``torch.distributed.checkpoint`` (the JAX package's orbax adapter,
+as ``DcpCheckpointCallback``)."""
 
 from tpu_resiliency_torch.integrations.checkpoint_callback import HierarchicalCheckpointCallback
+from tpu_resiliency_torch.integrations.dcp_adapter import DcpCheckpointCallback
 from tpu_resiliency_torch.integrations.ft_callbacks import (
     FaultToleranceCallback,
     FaultToleranceSectionsCallback,
@@ -15,9 +17,12 @@ from tpu_resiliency_torch.integrations.loop import (
     StopTraining,
     run_training,
 )
+from tpu_resiliency_torch.integrations.preemption import PreemptionCheckpointCallback
 from tpu_resiliency_torch.integrations.straggler_callback import StragglerDetectionCallback
 
 __all__ = [
+    "DcpCheckpointCallback",
+    "PreemptionCheckpointCallback",
     "Callback",
     "CallbackRunner",
     "LoopContext",

@@ -39,6 +39,7 @@ class StragglerDetectionCallback(Callback):
         mesh_signal_capacity: int = 16,
         profile_programs_every: Optional[int] = None,
         profile_ops: bool = False,
+        max_signals: int = 64,
         device=None,
     ):
         """``device``: where the Detector scores and the profiler reads (``None`` means
@@ -57,7 +58,9 @@ class StragglerDetectionCallback(Callback):
 
         ``profile_ops``: with ``profile_programs_every``, also feed each kernel's
         device duration from the same windows as ``op/<kernel>`` signals (the
-        reference's per-kernel CUPTI stream). With ``use_device_mesh`` the op
+        reference's per-kernel CUPTI stream). Every kernel name is a column of the
+        Detector's ``max_signals`` (default 64): a real model's step runs more kernels
+        than that and needs a larger ``max_signals``. With ``use_device_mesh`` the op
         signals count against ``mesh_signal_capacity`` like every other column; the
         first over-capacity report drops the group path for the run and falls back
         to the store gather (logged, training never interrupted).
@@ -88,6 +91,7 @@ class StragglerDetectionCallback(Callback):
             profiling_interval=profiling_interval,
             store=store,
             use_kernel=use_kernel,
+            max_signals=max_signals,
             device=device,
         )
         self._section = None

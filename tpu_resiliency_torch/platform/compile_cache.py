@@ -16,9 +16,11 @@ artifacts and Triton binaries instead of compiling them again.
 The port's own CUDA kernels are not in this cache: they build into the checkout's
 ``build/`` directory, keyed by a digest of their sources (``ops/_build.py``).
 
-The integrity sweep judges top-level ``*-cache`` entries, the JAX cache's layout;
-Inductor and Triton keep their entries in subdirectories of their own, which the
-sweep does not enter, so a corrupt entry there falls to the compilers' own checks.
+The integrity sweep judges every file under ``DIR/inductor`` and ``DIR/triton``
+(walked recursively, keyed in the manifest by the path relative to ``DIR``; Inductor's
+``.lock`` files are no entries), and the top-level ``*-cache`` entries of JAX's layout
+as the reference does, so a warm torch.compile cache counts as a ``hit`` and a torn
+Inductor or Triton file is purged to a cold compile.
 """
 
 from __future__ import annotations
@@ -54,17 +56,29 @@ MANIFEST_NAME = "MANIFEST.tpures.json"
 #: payloads plus tiny ``-atime`` stamps we ignore)
 _ENTRY_SUFFIX = "-cache"
 
+#: torch.compile's cache directories under the cache dir (``compiler_cache_env``):
+#: every file in them, at any depth, is an entry
+_COMPILER_DIRS = ("inductor", "triton")
+
+#: files in the compiler directories that are no entries (Inductor's file locks)
+_NOT_ENTRY_SUFFIXES = (".lock",)
+
 #: process-level latch: the cache is applied (and its event recorded) once
 _applied: Optional[dict] = None
 
 
 def _entry_names(path: str) -> list[str]:
+    """The entries under ``path``, each named by its path relative to ``path``:
+    top-level ``*-cache`` files, then every file below the compiler directories."""
     try:
-        return sorted(
-            n for n in os.listdir(path) if n.endswith(_ENTRY_SUFFIX)
-        )
+        names = [n for n in os.listdir(path) if n.endswith(_ENTRY_SUFFIX)]
     except OSError:
         return []
+    for sub in _COMPILER_DIRS:
+        for dirpath, _, files in os.walk(os.path.join(path, sub)):
+            rel = os.path.relpath(dirpath, path).replace(os.sep, "/")
+            names.extend(f"{rel}/{f}" for f in files if not f.endswith(_NOT_ENTRY_SUFFIXES))
+    return sorted(names)
 
 
 def _digest_file(p: str) -> tuple[int, int]:
@@ -146,7 +160,8 @@ def sweep(path: str) -> dict:
                 f"({size}B/crc{crc:08x} != manifest {want}); purging — "
                 "this program will cold-compile"
             )
-            for victim in (p, p[: -len(_ENTRY_SUFFIX)] + "-atime"):
+            stamp = [p[: -len(_ENTRY_SUFFIX)] + "-atime"] if "/" not in name else []
+            for victim in (p, *stamp):
                 try:
                     os.unlink(victim)
                 except OSError:

@@ -9,7 +9,9 @@ runtime warmup (``warm_runtime``). Every public entry point of the port takes
 elsewhere. The CPU runs the plain PyTorch path only when the caller asks for it with
 ``device="cpu"``.
 
-``make_mesh`` is not ported yet.
+``make_mesh`` builds a ``torch.distributed.device_mesh.DeviceMesh`` over ranks of the
+default process group, where the reference builds a ``jax.sharding.Mesh`` over
+devices.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ import dataclasses
 import os
 import subprocess
 import threading
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -120,6 +123,32 @@ def probe_topology() -> Topology:
         for i in range(torch.cuda.device_count())
     )
     return Topology(devices=infos, num_processes=process_count())
+
+
+def make_mesh(axis_shapes: dict[str, int], *, devices: Optional[Sequence[int]] = None,
+              device=None):
+    """Build a ``DeviceMesh`` with named axes over ranks of the default process group.
+
+    ``axis_shapes`` maps axis name → size in declaration order, e.g.
+    ``{"dp": 2, "tp": 4}``; the ranks (``devices``, all of the group's by default)
+    fill the grid row-major. ``device=None`` means the card (an NCCL group; raises
+    without a card); ``device="cpu"`` a gloo one. Raises ``ValueError`` when the
+    shape does not match the ranks, as the reference does, and ``RuntimeError``
+    without an initialized process group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev = resolve_device(device)
+    names = tuple(axis_shapes.keys())
+    shape = tuple(int(s) for s in axis_shapes.values())
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_mesh needs an initialized torch.distributed process group")
+    devs = list(devices) if devices is not None else list(range(dist.get_world_size()))
+    n = int(np.prod(shape))
+    if n != len(devs):
+        raise ValueError(f"mesh shape {shape} needs {n} devices, have {len(devs)}")
+    grid = torch.tensor(devs, dtype=torch.int64).reshape(shape)
+    return DeviceMesh(dev.type, grid, mesh_dim_names=names)
 
 
 def apply_platform_env() -> None:
