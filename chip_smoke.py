@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's straggler-telemetry, in-process restart, checkpoint,
-in-job restart and model paths on one CUDA card.
+in-job restart, model and parallel model paths on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA card
 and the CUDA toolkit (``nvcc``), builds the port's three window-reduction kernels
@@ -228,6 +228,34 @@ printing one JSON line that carries the card's name and power limit:
    finite, no expert taking more than ``capacity(512)`` tokens of a row in any layer,
    and the loss falling; it runs first, alone on the card, before (a)'s saves load the
    host. The health reports' ``loop`` launches go on the ``kernels`` line.
+16. ``parallel_path``: the parallel model path on the card, with sp = pp = 1 (the ring's
+   and the pipeline's exchanges run between ranks only in the CPU tests, over gloo).
+   (a) ``tpu_resiliency_torch.scripts.bench_model`` at ``TransformerConfig.llama3_8b()``
+   cut in depth to 2 layers, batch 1 x 2048, bf16, 10 timed steps; then at the
+   reference's defaults (8 layers x 1024, batch 8 x 1024, 20 steps): ms per step on
+   CUDA events, tokens/s, ``mfu`` (6 x parameters x tokens/s over 989 TFLOP/s) and
+   ``mfu_matmul`` (the parameters without the embedding table); the peak memory must
+   stay under the card's. (b) ``parallel.pipeline.make_pipelined_train_step`` at that
+   width, pp = 1, ``n_micro`` 2, batch 2 x 2048, 5 steps, in a one-process NCCL group:
+   step 0's bf16 loss must lie within ``PIPE_BF16_RTOL`` relative of the unpipelined
+   ``loss_fn`` on the same weights and tokens, the same loss of float8_e5m2-rounded
+   weights (the control) outside it, and the loss must fall. (c)
+   ``parallel.ring_attention.make_ring_attn_fn`` at sp = 1 on float32 q/k/v of B 1,
+   T 2048, H 32, dh 128 must match ``transformer._attention`` within ``RING_ATOL``
+   elementwise (bf16 printed beside); the dense loss with ``attn_fn=ring`` must lie
+   within ``RING_LOSS_RTOL`` of the default's, the e5m2 control outside it. (d)
+   ``examples.moe_pipeline_training --steps 8 --fault-step 3`` in a fresh interpreter
+   (one rank, a one-process NCCL group per iteration) must print ``RESUMED step=3``
+   and ``DONE loss=``. (e) ``examples.inprocess_restart_train --world 2``: two fresh
+   interpreters on the one card, no group between them; rank 1 dies at step 6 and
+   rank 0 must end at iteration 1, world 1, resumed after a saved step, with no
+   process left behind (``reap_strays``). (f)
+   ``examples/mesh_telemetry_training.py`` under the port's launcher with
+   ``--nproc-per-node 2`` on the one card, in a gloo group (NCCL refuses two ranks on
+   one card) whose collectives take the card's tensors: ``ZERO-GATHER OK`` with rank 1
+   flagged. Its workers' ``loop`` launches go on the ``kernels`` line: none, as the
+   Detector reduces each rank's windows on the host and the group scores the
+   summaries (``report_from_summary``), as the reference's mesh path does.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
@@ -1104,18 +1132,27 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def child_env() -> dict:
+    """The environment of a fresh interpreter this run starts from this checkout: the
+    checkout on its path, warnings only, and none of this process's rank or store."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent),
+               TPU_RESILIENCY_LOG_LEVEL="WARNING")
+    for k in ("RANK", "WORLD_SIZE", "TPU_RESILIENCY_STORE_PORT", "TPU_RESILIENCY_STORE_HOST"):
+        env.pop(k, None)
+    return env
+
+
 def run_children(children, timeout: float):
     """Start one fresh interpreter per ``(script, argv)``, all together, from this
     checkout; returns ``[(returncode, start and exit wall times, {tag: payloads} of its
     RESULT, PING and SPIN lines, stderr tail)]``, killing any child still alive at
     ``timeout``."""
-    import os
     import threading
 
     here = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=str(here), TPU_RESILIENCY_LOG_LEVEL="WARNING")
-    for k in ("RANK", "WORLD_SIZE", "TPU_RESILIENCY_STORE_PORT", "TPU_RESILIENCY_STORE_HOST"):
-        env.pop(k, None)
+    env = child_env()
     starts, procs = [], []
     for script, argv in children:
         starts.append(time.time())
@@ -2295,14 +2332,10 @@ print("RESULT " + json.dumps({"iteration": meta["iteration"], "load_s": load_s,
 
 def start_child(script: str, argv) -> subprocess.Popen:
     """One fresh interpreter running ``script`` from this checkout, its standard input
-    and output piped (the environment of :func:`run_children`)."""
-    import os
-
+    and output piped (:func:`child_env`)."""
     here = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=str(here), TPU_RESILIENCY_LOG_LEVEL="WARNING")
-    for k in ("RANK", "WORLD_SIZE", "TPU_RESILIENCY_STORE_PORT", "TPU_RESILIENCY_STORE_HOST"):
-        env.pop(k, None)
-    return subprocess.Popen([sys.executable, "-c", script, *map(str, argv)], cwd=here, env=env,
+    return subprocess.Popen([sys.executable, "-c", script, *map(str, argv)], cwd=here,
+                            env=child_env(),
                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
@@ -2455,14 +2488,8 @@ def model_path(smoke, device="cuda", dense=None, moe_cfg=None, seq=MODEL_SEQ,
     f32 = dataclasses.replace(cfg, dtype=torch.float32)
     with torch.no_grad():
         loss_f32 = float(tfm.loss_fn(model, tokens, f32))
-        # The control: the f32 forward of the same weights rounded to float8_e5m2.
-        kept = [p.clone() for p in model.parameters()]
-        for p in model.parameters():
-            p.copy_(p.to(torch.float8_e5m2).float())
-        loss_control = float(tfm.loss_fn(model, tokens, f32))
-        for p, k in zip(model.parameters(), kept):
-            p.copy_(k)
-        del kept
+    # The control: the f32 forward of the same weights rounded to float8_e5m2.
+    loss_control = e5m2_control(torch, model, lambda: float(tfm.loss_fn(model, tokens, f32)))
     train_step, init_opt = tfm.make_train_step(cfg)
     opt = init_opt(model)
     names = dict(model.named_parameters())
@@ -2665,11 +2692,8 @@ def model_path(smoke, device="cuda", dense=None, moe_cfg=None, seq=MODEL_SEQ,
         raise AssertionError(f"the container loads {bad} leaves other than the state at the "
                              f"save (count {loaded['count']})")
     loss0 = losses0[0]
-    if abs(loss0 - loss_f32) > bf16_rtol * abs(loss_f32):
-        raise AssertionError(f"step 0's bf16 loss {loss0} against the f32 forward's {loss_f32}")
-    if abs(loss_control - loss_f32) <= bf16_rtol * abs(loss_f32):
-        raise AssertionError(f"the float8_e5m2 control's loss {loss_control} lies within "
-                             f"{bf16_rtol} of the f32 forward's {loss_f32}")
+    relative_check("step 0's bf16 loss against the f32 forward", loss0, loss_f32, loss_control,
+                   bf16_rtol)
     all_losses = [losses0[i] for i in sorted(losses0)] + [
         losses1[i] for i in sorted(losses1) if i >= MODEL_FAULT_STEP]
     if not all_losses[-1] < all_losses[0]:
@@ -2727,6 +2751,262 @@ def model_path(smoke, device="cuda", dense=None, moe_cfg=None, seq=MODEL_SEQ,
                notice_step=MODEL_NOTICE_STEP, profile_every=MODEL_PROFILE_EVERY,
                health_ranks=ranks, dense=dense_fields, moe=moe_fields)
     return loop_launches
+
+
+PARALLEL_SEQ = 2048  # (a)'s and (c)'s sequence: Llama-3-8B at batch 1 x 2048, as model_path
+PARALLEL_BENCH = (  # (a): bench_model's arguments, each a run
+    ("llama3_8b_2L", ["--config", "llama3_8b", "--layers", str(MODEL_LAYERS), "--batch", "1",
+                      "--seq", str(PARALLEL_SEQ), "--iters", "10"]),
+    ("reference_defaults", []),  # 8 layers x 1024, batch 8 x 1024, 20 iterations
+)
+PIPE_BATCH = (2, PARALLEL_SEQ)  # (b): two microbatches of 1 x 2048
+PIPE_MICRO = 2
+PIPE_STEPS = 5
+# (b) step 0's pipelined bf16 loss, and (c) the loss with ring attention, against the
+# unpipelined default forward of the same weights and tokens, relative; the same
+# forward of float8_e5m2-rounded weights, the control, must lie outside each. On the
+# H100 80GB HBM3 at 700 W (PERF.md): (b) 0.0 apart, its control 1.1e-4;
+# (c) 2.7e-5 (the ring keeps the softmax in float32), its control 6.9e-2.
+PIPE_BF16_RTOL = 1e-5
+RING_LOSS_RTOL = 1e-4
+RING_SHAPE = (1, PARALLEL_SEQ, 32, 128)  # (c): B, T, H, dh of Llama-3-8B's attention
+RING_ATOL = 2e-5  # (c): f32 q/k/v, elementwise (tests/models/test_ring_attention.py's bound)
+PARALLEL_BUDGET_S = 150.0
+PARALLEL_MOE_ARGS = ["--steps", "8", "--fault-step", "3"]  # (d), as the reference's test
+PARALLEL_MESH_STEPS = 150  # (f): the reference test's steps
+
+
+def run_module(module: str, argv, timeout: float) -> tuple[int, str, str]:
+    """``python -m module *argv`` in a fresh interpreter from this checkout
+    (:func:`child_env`); returns its code, stdout and stderr."""
+    p = subprocess.run([sys.executable, "-m", module, *map(str, argv)],
+                       cwd=Path(__file__).resolve().parent, env=child_env(),
+                       capture_output=True, text=True, timeout=timeout)
+    return p.returncode, p.stdout, p.stderr
+
+
+def e5m2_control(torch, model, fn):
+    """``fn()`` with every weight of ``model`` rounded to float8_e5m2, the weights put
+    back after."""
+    kept = [p.detach().clone() for p in model.parameters()]
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.to(torch.float8_e5m2).to(p.dtype))
+        try:
+            return fn()
+        finally:
+            for p, k in zip(model.parameters(), kept):
+                p.copy_(k)
+
+
+def relative_check(label, value, ref, control, rtol) -> dict:
+    """``value`` within ``rtol`` of ``ref``, relative, and ``control`` outside it."""
+    err, control_err = abs(value - ref) / abs(ref), abs(control - ref) / abs(ref)
+    if err > rtol or control_err <= rtol:
+        raise AssertionError(f"{label}: {value} against {ref} ({err:.3g} relative, tolerance "
+                             f"{rtol}); the e5m2 control {control} ({control_err:.3g})")
+    return {"rel_err": err, "control": control, "control_rel_err": control_err, "rtol": rtol}
+
+
+def parallel_bench(torch, dev, bench, dev_args) -> dict:
+    """(a): each of ``bench``'s ``bench_model`` runs; on the card its step timed on CUDA
+    events, its MFU positive and its peak memory under the card's."""
+    from tpu_resiliency_torch.scripts import bench_model
+
+    cuda = dev.type == "cuda"
+    out = {}
+    for name, argv in bench:
+        rec = bench_model.run(bench_model.parse_args([*argv, *dev_args]))
+        total = torch.cuda.get_device_properties(dev).total_memory if cuda else 0
+        if cuda and not (rec["timer"] == "cuda_events" and rec["mfu"] > 0
+                         and rec["peak_memory_allocated"] < total):
+            raise AssertionError(f"bench_model {name}: {rec}")
+        if not (np.isfinite(rec["final_loss"]) and rec["value"] > 0):
+            raise AssertionError(f"bench_model {name}: {rec}")
+        out[name] = rec
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def parallel_model(torch, dev, cfg, pipe_batch, ring_shape, pipe_rtol, ring_rtol, parts):
+    """(b) the pipelined dense step at pp = 1 against the unpipelined loss, and (c)
+    ring attention at sp = 1 against the dense attention and in the model's loss, in a
+    one-process group (NCCL on the card)."""
+    from tpu_resiliency_torch.models import transformer as tfm
+    from tpu_resiliency_torch.parallel import mesh as pm
+    from tpu_resiliency_torch.parallel import pipeline as pl
+    from tpu_resiliency_torch.parallel.ring_attention import make_ring_attn_fn
+    from tpu_resiliency_torch.platform import distributed
+
+    cuda = dev.type == "cuda"
+    fields, seconds = {}, {}
+    distributed.initialize(f"tcp://localhost:{free_port()}", 1, 0, timeout=60.0, device=dev)
+    try:
+        mesh = pm.build_mesh(device=dev.type)
+        model = tfm.Transformer(cfg, seed=5, device=dev)
+        gen = torch.Generator().manual_seed(13)
+        tokens = torch.randint(0, cfg.vocab_size, pipe_batch, generator=gen).to(dev)
+        if "b" in parts:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                loss_ref = float(tfm.loss_fn(model, tokens, cfg))
+            control = e5m2_control(torch, model, lambda: float(tfm.loss_fn(model, tokens, cfg)))
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            step, init_opt = pl.make_pipelined_train_step(cfg, mesh, n_micro=PIPE_MICRO)
+            opt = init_opt(model)
+            timer = StepTimer(torch, dev)
+            losses = [float(timer(lambda: step(model, opt, tokens))[2]) for _ in range(PIPE_STEPS)]
+            ms = statistics.median(timer.ms()[1:])
+            del opt
+            check = relative_check("(b) step 0's pipelined loss", losses[0], loss_ref, control,
+                                   pipe_rtol)
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"(b) the pipelined loss did not fall: {losses}")
+            fields["pipeline"] = dict(
+                layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+                params=sum(p.numel() for p in model.parameters()), pp=1, n_micro=PIPE_MICRO,
+                batch=list(pipe_batch), steps=PIPE_STEPS, losses=losses,
+                loss_unpipelined_step0=loss_ref, **check, ms_per_step_median=ms,
+                tokens_per_s=pipe_batch[0] * pipe_batch[1] / (ms / 1e3),
+                peak_memory_allocated=torch.cuda.max_memory_allocated(dev) if cuda else None)
+            seconds["b"] = time.perf_counter() - t0
+        if "c" in parts:
+            t0 = time.perf_counter()
+            ring = make_ring_attn_fn(mesh)
+            g = torch.Generator().manual_seed(17)
+            q, k, v = (torch.randn(ring_shape, generator=g).to(dev) for _ in range(3))
+            with torch.no_grad():
+                err = float((ring(q, k, v) - tfm._attention(q, k, v)).abs().max())
+                qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+                err_bf16 = float((ring(qb, kb, vb).float()
+                                  - tfm._attention(qb, kb, vb).float()).abs().max())
+                del q, k, v, qb, kb, vb
+                one = tokens[:1]
+                loss_default = float(tfm.loss_fn(model, one, cfg))
+                loss_ring = float(tfm.loss_fn(model, one, cfg, attn_fn=ring))
+            control = e5m2_control(torch, model,
+                                   lambda: float(tfm.loss_fn(model, one, cfg, attn_fn=ring)))
+            if err > RING_ATOL:
+                raise AssertionError(f"(c) ring attention off the dense by {err} (atol {RING_ATOL})")
+            check = relative_check("(c) the loss with ring attention", loss_ring, loss_default,
+                                   control, ring_rtol)
+            fields["ring"] = dict(shape=list(ring_shape), sp=1, max_abs_err_f32=err,
+                                  atol=RING_ATOL, max_abs_err_bf16=err_bf16,
+                                  loss_default=loss_default, loss_ring=loss_ring, **check)
+            seconds["c"] = time.perf_counter() - t0
+        del model
+    finally:
+        distributed.shutdown_for_restart()
+        if cuda:
+            torch.cuda.empty_cache()
+    return fields, seconds
+
+
+def parallel_examples(root: Path, dev_args, parts, cuda: bool) -> tuple[dict, dict, int]:
+    """(d)-(f): the three examples, each a fresh process tree on the card. Returns their
+    fields, seconds and (f)'s workers' ``loop`` launches (none: its Detector reduces
+    windows on the host)."""
+    import ast
+
+    fields, seconds, launches = {}, {}, 0
+    if "d" in parts:
+        t0 = time.perf_counter()
+        rc, out, err = run_module("tpu_resiliency_torch.examples.moe_pipeline_training",
+                                  [*PARALLEL_MOE_ARGS, "--ckpt-root", root / "moe", *dev_args],
+                                  timeout=300.0)
+        if rc != 0 or "RESUMED step=3" not in out or "DONE loss=" not in out:
+            raise AssertionError(f"(d) moe_pipeline_training rc {rc}:\n{out[-2000:]}\n{err[-3000:]}")
+        fields["moe_example"] = [ln for ln in out.splitlines()
+                                 if ln.startswith(("RESUMED", "DONE"))]
+        seconds["d"] = time.perf_counter() - t0
+    if "e" in parts:
+        t0 = time.perf_counter()
+        rc, out, err = run_module("tpu_resiliency_torch.examples.inprocess_restart_train",
+                                  ["--world", "2", "--ckpt-root", root / "inproc", *dev_args],
+                                  timeout=300.0)
+        lines = [ln for ln in out.splitlines() if ln.startswith("results:")]
+        results = ast.literal_eval(lines[0][len("results:"):].strip()) if lines else {}
+        r0 = results.get(0, {})
+        strays = reap_strays(timeout=30.0)
+        # Rank 0 alone, at iteration 1, resumed after a saved (even) step.
+        if not (rc == 0 and "RESTART-RESUME OK" in out and r0.get("iteration") == 1
+                and r0.get("active_world") == 1 and r0.get("resumed_from", 0) > 0
+                and (r0["resumed_from"] - 1) % 2 == 0 and 1 not in results):
+            raise AssertionError(f"(e) inprocess_restart_train rc {rc}: {results}\n"
+                                 f"{out[-2000:]}\n{err[-3000:]}")
+        if strays:
+            raise AssertionError(f"(e) left {len(strays)} processes behind: {strays}")
+        fields["inprocess_example"] = r0
+        seconds["e"] = time.perf_counter() - t0
+    if "f" in parts:
+        t0 = time.perf_counter()
+        here = Path(__file__).resolve().parent
+        run = run_launcher(
+            "mesh_telemetry", root,
+            ["--nproc-per-node", "2", "--no-ft-monitors", "--rdzv-endpoint",
+             f"127.0.0.1:{free_port()}", "--rdzv-last-call", "0.2", "--monitor-interval", "0.1"],
+            [str(here / "tpu_resiliency_torch" / "examples" / "mesh_telemetry_training.py"),
+             "--steps", str(PARALLEL_MESH_STEPS), *dev_args], timeout=300.0)
+        recs = results_of(run)
+        launches = sum(r["loop_launches"] for r in recs)
+        want_device = "cuda:0" if cuda else "cpu"
+        if not (run["rc"] == 0 and "ZERO-GATHER OK" in run["out"]
+                and "flagged ranks [1]" in run["out"] and len(recs) == 2
+                and all(r["device"] == want_device and r["backend"] == "gloo" for r in recs)):
+            raise AssertionError(f"(f) mesh_telemetry_training rc {run['rc']}: {recs}\n"
+                                 f"{run['out'][-2000:]}\n{run['err'][-3000:]}")
+        fields["mesh_telemetry"] = {"results": recs, "loop_launches": launches,
+                                    "launcher_seconds": run["seconds"],
+                                    "strays_killed": run["strays_killed"]}
+        seconds["f"] = time.perf_counter() - t0
+    return fields, seconds, launches
+
+
+def parallel_path(smoke, device="cuda", dense=None, bench=PARALLEL_BENCH, pipe_batch=PIPE_BATCH,
+                  ring_shape=RING_SHAPE, pipe_rtol=PIPE_BF16_RTOL, ring_rtol=RING_LOSS_RTOL,
+                  example_device=None, parts="abcdef"):
+    """Phase 16: ``bench_model``, the pipeline schedule, ring attention and the three
+    model examples on the card (see the module's docstring). ``device``, ``dense``, the
+    sizes, the tolerance, ``example_device`` (``"cpu"`` for the examples' ``--device``)
+    and ``parts`` let it rehearse on the CPU at a small size, or a part alone. Returns
+    the ``loop`` launches of (f)'s workers."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpu_resiliency_torch.models import transformer as tfm
+    from tpu_resiliency_torch.ops import scoring_kernels as sk
+
+    dev = torch.device(device)
+    dev_args = ["--device", example_device] if example_device else []
+    t_phase = time.perf_counter()
+    fields, seconds = {}, {}
+    sk.reset_launches()
+    if "a" in parts:
+        t0 = time.perf_counter()
+        fields["bench_model"] = parallel_bench(torch, dev, bench, dev_args)
+        seconds["a"] = time.perf_counter() - t0
+    if "b" in parts or "c" in parts:
+        cfg = dense or tfm.TransformerConfig.llama3_8b(n_layers=MODEL_LAYERS)
+        f, s = parallel_model(torch, dev, cfg, pipe_batch, ring_shape, pipe_rtol, ring_rtol,
+                              parts)
+        fields.update(f)
+        seconds.update(s)
+    in_process_launches = dict(sk.fused_median_weights.launches_by_mode)
+    root = Path(tempfile.mkdtemp(prefix="parallel-path-"))
+    try:
+        f, s, launches = parallel_examples(root, dev_args, parts, dev.type == "cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fields.update(f)
+    seconds.update(s)
+    smoke.emit("parallel_path", seconds=time.perf_counter() - t_phase,
+               budget_s=PARALLEL_BUDGET_S, part_seconds=seconds, **fields,
+               in_process_launches=in_process_launches, loop_launches=launches)
+    return launches
 
 
 def main() -> int:
@@ -3218,6 +3498,10 @@ def main() -> int:
     # 15. model path: the health reports' loop launches ------------------------------
     torch.cuda.empty_cache()
     path_launches["loop"] += model_path(smoke)
+
+    # 16. parallel path: the mesh telemetry workers' loop launches --------------------
+    torch.cuda.empty_cache()
+    path_launches["loop"] += parallel_path(smoke)
 
     kernels = []
     for mode in sk.MODES:

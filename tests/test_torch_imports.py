@@ -139,7 +139,20 @@ MODEL_MODULES = (
     "tpu_resiliency_torch.examples.preemption_train",
 )
 
-ALL_SLICES = SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES + FT_MODULES + MODEL_MODULES
+#: Modules of the parallel model slice, each imported by the subprocess check.
+PARALLEL_MODULES = (
+    "tpu_resiliency_torch.parallel.p2p",
+    "tpu_resiliency_torch.parallel.ring_attention",
+    "tpu_resiliency_torch.parallel.pipeline",
+    "tpu_resiliency_torch.examples.moe_pipeline_training",
+    "tpu_resiliency_torch.examples.inprocess_restart_train",
+    "tpu_resiliency_torch.examples.mesh_telemetry_training",
+    "tpu_resiliency_torch.scripts",
+    "tpu_resiliency_torch.scripts.bench_model",
+)
+
+ALL_SLICES = (SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES + FT_MODULES + MODEL_MODULES
+              + PARALLEL_MODULES)
 
 
 def test_importing_every_module_loads_no_jax():
@@ -271,3 +284,22 @@ def test_chip_smoke_prints_no_result_without_a_card():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "tpu_resiliency_torch.examples.moe_pipeline_training", "--steps", "1"],
+    ["-m", "tpu_resiliency_torch.examples.inprocess_restart_train", "--world", "1",
+     "--steps", "1"],
+    [str(PACKAGE_DIR / "examples" / "mesh_telemetry_training.py")],
+], ids=["moe_pipeline_training", "inprocess_restart_train", "mesh_telemetry_training"])
+def test_parallel_examples_run_on_the_card_by_default(argv):
+    """Without ``--device`` each parallel-path example asks for the card, and fails
+    without one (``chip_smoke.py`` ``parallel_path`` runs them on it)."""
+    if torch.cuda.is_available():
+        pytest.skip("the card is here: chip_smoke.py parallel_path runs the examples on it")
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", TPU_RESILIENCY_LOG_LEVEL="WARNING",
+               PYTHONPATH=str(REPO_ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, *argv], cwd=REPO_ROOT, env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stdout + r.stderr

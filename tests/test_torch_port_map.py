@@ -46,9 +46,6 @@ NOT_YET_PORTED = (
     "tpu_resiliency.launcher.autoscale",
     "tpu_resiliency.launcher.incident",
     "tpu_resiliency.launcher.telemetry",
-    # parallel
-    "tpu_resiliency.parallel.pipeline",
-    "tpu_resiliency.parallel.ring_attention",
     # telemetry
     "tpu_resiliency.telemetry.remediation",
     "tpu_resiliency.telemetry.watchtower",
@@ -185,6 +182,27 @@ MODEL_SLICE = (
 )
 
 
+#: The modules of the parallel model slice (ring attention and the pipeline schedule,
+#: over the port's differentiable neighbour shift ``parallel/p2p.py``): each has its
+#: counterpart.
+PARALLEL_SLICE = (
+    "tpu_resiliency.parallel.ring_attention",
+    "tpu_resiliency.parallel.pipeline",
+)
+
+#: The repo-root examples and scripts the port carries, each at its path under
+#: ``tpu_resiliency_torch/``.
+ROOT_PORTS = (
+    "examples/resilient_training.py",
+    "examples/layered_restart.py",
+    "examples/preemption_train.py",
+    "examples/moe_pipeline_training.py",
+    "examples/inprocess_restart_train.py",
+    "examples/mesh_telemetry_training.py",
+    "scripts/bench_model.py",
+)
+
+
 def _answered(package: str) -> dict[str, str]:
     """ANSWERED's reference names exported by ``package``, mapped to their answers."""
     return {name.rsplit(".", 1)[1]: answer for name, answer in ANSWERED.items()
@@ -261,6 +279,24 @@ def test_the_fault_tolerance_slice_is_ported(module):
 def test_the_model_slice_is_ported(module):
     assert module in reference_modules()
     assert has_counterpart(module) and module not in NOT_YET_PORTED
+
+
+@pytest.mark.parametrize("module", PARALLEL_SLICE)
+def test_the_parallel_slice_is_ported(module):
+    assert module in reference_modules()
+    assert has_counterpart(module) and module not in NOT_YET_PORTED
+
+
+@pytest.mark.parametrize("path", ROOT_PORTS)
+def test_the_root_example_or_script_is_ported(path):
+    assert (REFERENCE_DIR.parent / path).is_file()
+    assert (PORT_DIR / path).is_file()
+
+
+def test_every_root_example_is_ported():
+    examples = sorted(p.relative_to(REFERENCE_DIR.parent).as_posix()
+                      for p in (REFERENCE_DIR.parent / "examples").glob("*.py"))
+    assert examples and set(examples) <= set(ROOT_PORTS)
 
 
 def test_renamed_modules_exist_on_both_sides():

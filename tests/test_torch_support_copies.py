@@ -884,3 +884,61 @@ def test_every_copy_imports_nothing_of_the_reference():
     for path in COPIES:
         text = (REPO / "tpu_resiliency_torch" / path).read_text()
         assert not re.search(r"^\s*(from|import) tpu_resiliency\b(?!_torch)", text, re.M), path
+
+
+#: The parallel model slice is a port, not a copy: its bodies are torch where the
+#: reference's are JAX. Each departure from the reference's behaviour or interface is
+#: listed here as (reference file, text only the reference holds, text the port holds
+#: in its place, why); the port's file is the reference's path under
+#: ``tpu_resiliency_torch/``.
+PORT_DEPARTURES = (
+    ("tpu_resiliency/parallel/ring_attention.py", "@functools.lru_cache(maxsize=8)",
+     "``_cached_sharded_kernel`` cache is\ngone",
+     "nothing is compiled: attn_fn looks up the sp group and the placements only"),
+    ("tpu_resiliency/parallel/ring_attention.py", "lax.ppermute((k, v), axis_name, perm)",
+     "k, v = shift((k, v), group)",
+     "torch's send and receive are not differentiable: p2p.shift is the ring hop"),
+    ("tpu_resiliency/parallel/pipeline.py", 'f32_boundary = mesh.devices.flat[0].platform == "cpu"',
+     "The reference's float32 boundary (a workaround for an XLA CPU miscompile of bf16\n"
+     "  all-reduces) is dropped",
+     "the miscompile is XLA's; torch has none, so the carries keep their dtypes"),
+    ("tpu_resiliency/parallel/pipeline.py", "lax.all_gather(_to_boundary(o), axis_name, axis=0)",
+     "buf = read_from(buf, n_stages - 1, group)",
+     "a broadcast from the last stage whose gradient reaches that stage once"),
+    ("tpu_resiliency/parallel/pipeline.py", "lax.scan(\n                tick,",
+     "for t in range(n_ticks):",
+     "a Python loop over ticks; a stage skips its layers where it holds no microbatch"),
+    ("examples/inprocess_restart_train.py",
+     'ap.add_argument("--cpu", action="store_true", default=True)',
+     'ap.add_argument("--device", default="",',
+     "--cpu defaulted to True and could not be turned off; the card is the default"),
+    ("examples/inprocess_restart_train.py", '"--devices-per-rank", type=int, default=1,',
+     '"local_devices": 1,',
+     "JAX's virtual devices per process have no counterpart: a rank drives one device"),
+    ("examples/inprocess_restart_train.py", 'ctx = mp.get_context("fork")',
+     'ctx = mp.get_context("spawn")',
+     "the parent must not fork a process that may hold CUDA state"),
+    ("examples/moe_pipeline_training.py", '"--tpu", action="store_true",',
+     'p.add_argument("--world", type=int, default=1, help="rank processes")',
+     "one process per rank (gloo with --device cpu) where the reference has 8 virtual "
+     "devices in one"),
+    ("examples/mesh_telemetry_training.py",
+     'ap.add_argument("--coord-port", type=int, required=True,',
+     'key = f"mesh_telemetry/group_port/',
+     "jax.distributed's coordinator port: the group's address comes through the "
+     "launcher's store"),
+    ("scripts/bench_model.py", '"mfu_vs_v5e_peak": round(', '"mfu": mfu(n_params),',
+     "the MFU is priced at the H100's bf16 peak, beside the matmul-only MFU"),
+    ("scripts/bench_model.py", "# No device plane (CPU simulation): fall back to blocking wall clock.",
+     '"timer": "cuda_events" if cuda else "host_clock",',
+     "no fallback to the wall clock on the card; a CPU run reports no device metric"),
+)
+
+
+@pytest.mark.parametrize("ref_path,ref_text,port_text,why", PORT_DEPARTURES,
+                         ids=[f"{p}:{i}" for i, (p, *_) in enumerate(PORT_DEPARTURES)])
+def test_the_parallel_ports_list_their_departures(ref_path, ref_text, port_text, why):
+    ref = (REPO / ref_path).read_text()
+    port = (REPO / "tpu_resiliency_torch" / ref_path.removeprefix("tpu_resiliency/")).read_text()
+    assert why and ref.count(ref_text) == 1, f"{ref_path}: {ref_text!r}"
+    assert ref_text not in port and port_text in port, f"{ref_path}: {port_text!r}"

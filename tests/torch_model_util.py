@@ -45,12 +45,16 @@ CHILD_HEAD = textwrap.dedent(
 )
 
 
-def run_gloo(body: str, world: int, args=None, timeout: float = 240.0) -> list:
+def run_gloo(body: str, world: int, args=None, timeout: float = 240.0, threads=None) -> list:
     """Run ``body`` (after :data:`CHILD_HEAD`) in ``world`` gloo ranks; returns each
-    rank's ``RESULT`` payload, in rank order. A rank that fails fails the call."""
+    rank's ``RESULT`` payload, in rank order. A rank that fails fails the call.
+    ``threads``: each rank's intra-op threads (``OMP_NUM_THREADS``; torch's default
+    otherwise, every core in every rank)."""
     code = CHILD_HEAD + textwrap.dedent(body) + "\ndist.destroy_process_group()\n"
     port = free_port()
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    if threads is not None:
+        env["OMP_NUM_THREADS"] = str(threads)
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world), str(port),
                                json.dumps(args or {})], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)

@@ -39,6 +39,11 @@ trained with ``torch.optim.AdamW``), ``parallel.mesh`` over ``platform.device.ma
 at one agreed step after a SIGTERM notice), ``integrations.dcp_adapter`` (the global
 checkpoint tier on ``torch.distributed.checkpoint``) and ``examples.preemption_train``.
 
+The parallel model slice: ``parallel.ring_attention`` and ``parallel.pipeline`` over
+``parallel.p2p`` (a differentiable neighbour shift and the pipeline's other
+transposes), the examples ``moe_pipeline_training``, ``inprocess_restart_train`` and
+``mesh_telemetry_training``, and ``scripts.bench_model`` (tokens/s and MFU).
+
 Entry points run on the CUDA card by default and raise when there is none; pass
 ``device="cpu"`` to run the plain PyTorch path on the CPU.
 """

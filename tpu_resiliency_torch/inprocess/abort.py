@@ -54,9 +54,16 @@ class AbortTorchDistributed(Abort):
 @dataclasses.dataclass
 class AbortCompilationCache(Abort):
     """Drop compiled programs that may be specialised to the previous world
-    (``torch.compiler.reset()``: dynamo's and inductor's caches)."""
+    (``torch.compiler.reset()``: dynamo's and inductor's caches). A process that never
+    loaded ``torch._dynamo`` compiled nothing, and the reset, which would import it
+    (about 2 s on a CPU host), is skipped: the abort runs while the main thread still
+    trains."""
 
     def __call__(self, state: FrozenState) -> FrozenState:
+        import sys
+
+        if "torch._dynamo" not in sys.modules:
+            return state
         import torch
 
         try:

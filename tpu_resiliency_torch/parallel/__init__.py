@@ -1,6 +1,8 @@
 """Parallelism package: the mesh axis conventions and sharding-spec helpers
-(``mesh``). Ring attention and the pipeline schedule are not ported yet (see
-ROADMAP.md)."""
+(``mesh``). ``ring_attention`` and ``pipeline`` (with ``p2p``, their differentiable
+neighbour exchanges) are not imported here, as the reference does not import its
+``pipeline``: import them directly, ``from tpu_resiliency_torch.parallel import
+pipeline``."""
 
 from tpu_resiliency_torch.parallel import mesh
 

@@ -4,8 +4,10 @@ Port of ``tpu_resiliency/parallel/mesh.py``. Axis names used throughout:
 
 - ``dp``: data parallel (batch axis; gradients reduced over the group),
 - ``tp``: tensor parallel (attention heads / MLP hidden sharded),
-- ``sp``: sequence/context parallel (ring attention, not ported yet),
-- ``pp``: pipeline parallel (the stacked ``[L]`` layer axis, not ported yet),
+- ``sp``: sequence/context parallel (the sequence axis; attention runs as a ring,
+  ``parallel/ring_attention.py``),
+- ``pp``: pipeline parallel (the stacked ``[L]`` layer axis in stages; microbatches
+  hop stage to stage, ``parallel/pipeline.py``),
 - ``ep``: expert parallel (the MoE expert axis).
 
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the
