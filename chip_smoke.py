@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's straggler-telemetry, in-process restart, checkpoint,
-in-job restart, model and parallel model paths on one CUDA card.
+in-job restart, model, parallel model and observability paths on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA card
 and the CUDA toolkit (``nvcc``), builds the port's three window-reduction kernels
@@ -256,6 +256,37 @@ printing one JSON line that carries the card's name and power limit:
    flagged. Its workers' ``loop`` launches go on the ``kernels`` line: none, as the
    Detector reduces each rank's windows on the host and the group scores the
    summaries (``report_from_summary``), as the reference's mesh path does.
+
+17. ``observe_path``: the launcher's detect, decide and act loop on the card. One run of
+   the port's launcher (``--standalone --nproc-per-node 1 --warm-spares 1 --max-restarts
+   2 --metrics-file M --incidents-dir I --telemetry-port 0 --autoscale act --alerts
+   on``) in a working directory of its own, whose ``BENCH_restart.json`` holds
+   ``injob_path``'s cold and warm respawn segments of this run, so that the
+   controller's cost model (``CostModel.from_bench(os.getcwd())``) prices with the
+   card's respawns. Its worker (``OBSERVE_CHILD``, launcher rank 0 on ``cuda:0``)
+   runs about 10 ms of matmuls per step, padded to 1.6x in round 0, and pushes config
+   4's row into ``MeshTelemetry``: the generator's rows with no slow rank, rank 0's
+   scaled by its measured slowdown (CUDA events, rounded to ``OBSERVE_QUANTUM``);
+   every 20 steps a ``loop`` report feeds ``HealthVectorPolicy`` (patience 2, recovery
+   3) and a local checkpoint is saved. The checks: the only swap decision names rank
+   0 and actuates (``ok``), priced at what the card's model gives; the policy names no
+   other rank; round 1 is the parked spare's promotion; a ``reinstate`` follows the
+   recovery; one incident (an auto-mode ``IncidentEngine`` tailing the job's stream,
+   as an operator's would) opens on the degraded set and closes as recovered, and
+   ``tools.incident_report`` renders it; the restored ring and round 1's masks equal
+   an uninterrupted replay's; ``tpu_autoscale_decisions_total{swap,ok}`` and
+   ``tpu_remediation_actions_total`` of the swap and the reinstate read 1 in the
+   processes' merged ``M.*.json`` snapshots and in ``tools.metrics_dump``'s stream;
+   ``/metrics``, ``/goodput``, ``/alerts``, ``/autoscale`` and ``/healthz`` each answer
+   200 during the run (the port file's handshake), ``/goodput``'s phases within 5% of
+   its wall clock; no process but a worker holds the card, none is left after the
+   launcher; the phase within 150 s. Printed: the degraded set to the decision, the
+   decision to the promoted spare's first step in segments, the swap's predicted
+   delta beside its realized one and beside what the repo's CPU
+   ``BENCH_restart.json`` would have predicted, ``/goodput``'s attribution, each
+   endpoint's latency, and per step the push, the event record with the metrics file
+   wired and each events sink's cost. The workers' ``loop`` launches go on the
+   ``kernels`` line.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
@@ -1933,13 +1964,16 @@ class CardWatch:
             self._stop.wait(self.interval)
 
 
-def run_launcher(tag, root, launcher_args, worker_argv, timeout):
+def run_launcher(tag, root, launcher_args, worker_argv, timeout, cwd=None, during=()):
     """One fresh process tree: the port's launcher as a subprocess (its own session),
-    stdout and stderr to files, watched by a :class:`CardWatch`. Returns its return
-    code, events, output, the watch and the launcher's pid. Every process it started
-    is reaped afterwards."""
+    stdout and stderr to files, watched by a :class:`CardWatch`, in ``cwd`` (default:
+    this checkout). Each of ``during``, ``(events_path, run_dir, stop)``, runs on a
+    thread of its own while the launcher runs, until ``stop`` is set after it exits.
+    Returns its return code, events, output, the watch and the launcher's pid. Every
+    process it started is reaped afterwards."""
     import os
     import signal
+    import threading
 
     here = Path(__file__).resolve().parent
     events = root / f"{tag}.events.jsonl"
@@ -1959,10 +1993,15 @@ def run_launcher(tag, root, launcher_args, worker_argv, timeout):
             return total - free
 
     watch = CardWatch(used_bytes=used).start()
+    stop = threading.Event()
+    sides = [threading.Thread(target=fn, args=(events, root / f"{tag}.run", stop), daemon=True)
+             for fn in during]
     t0 = time.time()
     with open(out_path, "w") as out, open(err_path, "w") as err:
-        p = subprocess.Popen(cmd, stdout=out, stderr=err, env=env, cwd=here,
+        p = subprocess.Popen(cmd, stdout=out, stderr=err, env=env, cwd=cwd or here,
                              start_new_session=True)
+        for side in sides:
+            side.start()
         try:
             rc = p.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
@@ -1970,6 +2009,9 @@ def run_launcher(tag, root, launcher_args, worker_argv, timeout):
             p.wait()
             rc = "timeout"
     seconds = time.time() - t0
+    stop.set()
+    for side in sides:
+        side.join(30)
     killed = reap_strays(timeout=10.0)
     watch.stop()
     recs = [json.loads(ln) for ln in events.read_text().splitlines()] if events.exists() else []
@@ -2245,6 +2287,17 @@ def runtime_check_on_card(torch):
     return out
 
 
+def restart_costs_ms(seg) -> dict:
+    """An in-job respawn's segments (:func:`restart_segments`) in the reference's
+    ``BENCH_restart.json`` schema, the four that ``CostModel.from_bench`` sums: detect
+    (the last heartbeat to the agent's failure detection), teardown, rendezvous and
+    respawn (the new worker's spawn or promotion to its first step)."""
+    respawn = ("spawn_and_startup", "cuda_context_and_kernel_load", "restore", "first_step")
+    return {"detect_ms": (seg["detect"] + seg["kill_signal"] + seg["death"]) * 1e3,
+            "teardown_ms": seg["teardown"] * 1e3, "rendezvous_ms": seg["rendezvous"] * 1e3,
+            "respawn_ms": sum(seg[k] for k in respawn) * 1e3}
+
+
 def injob_path(smoke):
     """Phase 14: fault tolerance and in-job restart on the card (see the module's
     docstring). Returns the workers' ``loop`` launches."""
@@ -2271,6 +2324,8 @@ def injob_path(smoke):
             "--warm-spares", "1", "--warm-spare-warmup", "runtime"])
         if not warm["promoted"]:
             raise AssertionError("injob warm: round 1 was not promoted from the parked spare")
+        smoke.restart_costs = {"in_job": restart_costs_ms(cold["segments_s"]),
+                               "in_job_warm_spares": restart_costs_ms(warm["segments_s"])}
         layered, layered_loop = layered_scenario(root, masks)
         runtime = runtime_check_on_card(torch)
     finally:
@@ -3009,6 +3064,591 @@ def parallel_path(smoke, device="cuda", dense=None, bench=PARALLEL_BENCH, pipe_b
     return launches
 
 
+OBSERVE_REPORT_EVERY = 20  # steps per report, and per local checkpoint
+OBSERVE_POOL = 64  # the generator's rows the synthetic ranks cycle through
+OBSERVE_WORK_MS = 10.0  # each step's device work, unpadded
+#: Rank 0's slowdown (its step over the calibrated step) is rounded to this before it
+#: scales its row. Unrounded, a drift of the card's clocks by 1% would read as a
+#: robust-z outlier among 4096 ranks whose perf scores spread by about 0.14%, and rank
+#: 0 would never be reported recovered; 1.6x still reads as 1.6.
+OBSERVE_QUANTUM = 0.1
+OBSERVE_PATIENCE, OBSERVE_RECOVERY = 2, 3  # the health policy's
+OBSERVE_BUDGET_S = 150.0  # the phase's share of the script's time (ROADMAP ground rules)
+OBSERVE_TIMEOUT_S = 130.0  # the launcher run's
+OBSERVE_GOODPUT_TOL = 0.05  # /goodput's phases against its wall clock (test_goodput_e2e's)
+#: The endpoints that must answer 200 during the run, through the port-file handshake.
+OBSERVE_ENDPOINTS = ("/metrics", "/goodput", "/alerts", "/autoscale", "/healthz")
+#: The launcher's flags: the detect, decide and act loop with all its planes on.
+OBSERVE_LAUNCHER = ["--standalone", "--nproc-per-node", "1", "--warm-spares", "1",
+                    "--warm-spare-warmup", "runtime", "--max-restarts", "2",
+                    "--monitor-interval", "0.1", "--rdzv-last-call", "0.2",
+                    "--telemetry-port", "0", "--autoscale", "act", "--alerts", "on"]
+
+
+def observe_rows(seed, ranks, signals, pool):
+    """``bench.py``'s seeded generator with no slow ranks: ``pool`` rows of timings
+    ``[pool, ranks, signals]`` (a per-signal base with 5% noise), as numpy."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0.8, 1.2, size=(1, signals, 1)).astype(np.float32)
+    data = base * (1.0 + 0.05 * rng.standard_normal((ranks, signals, pool)).astype(np.float32))
+    return np.ascontiguousarray(data.transpose(2, 0, 1))
+
+
+#: observe_path's worker, launcher rank 0. Each step runs a fixed piece of device work
+#: (matmuls, calibrated at start to ``work_ms``; padded to 1.6x in round 0, so the
+#: straggler is real), times it (CUDA events on the card), and pushes one row into
+#: ``MeshTelemetry``: the generator's row, with no slow rank, whose rank 0 is scaled by
+#: that time over the calibrated one (rounded to ``quantum``).
+#: Every ``every`` steps it scores a ``loop`` report, feeds the health policy (its
+#: ``degraded_set`` events reach the launcher's controller through the events file)
+#: and saves a local checkpoint (the ring, the step, rank 0's ratios). Round 0 runs
+#: until the swap stops it, which may land between a report's published verdict and
+#: its save. A later round restores the checkpoint, carries the degraded set that the
+#: last ``degraded_set`` record of the job's stream published (the verdict the
+#: controller acted on; a fresh policy's streaks, as ``note_restart`` leaves them),
+#: runs unpadded until the policy reports rank 0
+#: recovered (its remediation engine audits the reinstate) and the controller has
+#: settled the swap's outcome, then replays the run uninterrupted from the recorded
+#: ratios and prints one RESULT line. argv: root, device, ranks, signals, window,
+#: every, work_ms, quantum.
+OBSERVE_CHILD = """
+import time
+
+T_ENTRY = time.time()
+
+import json, os, statistics, sys
+
+import torch
+
+import chip_smoke as cs
+from tpu_resiliency_torch.checkpoint.local_manager import LocalCheckpointManager
+from tpu_resiliency_torch.checkpoint.state_dict import PyTreeStateDict
+from tpu_resiliency_torch.ops import _build
+from tpu_resiliency_torch.ops import scoring_kernels as sk
+from tpu_resiliency_torch.platform.device import resolve_device
+from tpu_resiliency_torch.telemetry.policy import HealthVectorPolicy
+from tpu_resiliency_torch.telemetry.remediation import RemediationEngine
+from tpu_resiliency_torch.telemetry.sharded import MeshTelemetry, TelemetryState
+from tpu_resiliency_torch.utils import events
+from tpu_resiliency_torch.utils.events import record
+
+T_IMPORTS = time.time()
+ROUND0_CAP_S, LATER_CAP_S = 90.0, 60.0  # no swap, or no recovery and outcome, by then
+
+root, device = sys.argv[1], sys.argv[2]
+R, S, W, every = (int(a) for a in sys.argv[3:7])
+work_ms, quantum = float(sys.argv[7]), float(sys.argv[8])
+round_no = int(os.environ.get("TPU_FT_RESTART_COUNT", "0"))
+record("example", "worker_stage", stage="entry", t=T_ENTRY)
+record("example", "worker_stage", stage="imports", t=T_IMPORTS)
+dev = resolve_device(device or f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}")
+cuda = dev.type == "cuda"
+if not cuda:
+    torch.set_num_threads(1)  # the host's other load shares fewer cores with the work
+if cuda:
+    torch.cuda.set_device(dev)
+    torch.ones(1, device=dev).add_(1)
+    torch.cuda.synchronize(dev)
+    _build.load(sk.KERNEL_NAMES["loop"])
+record("example", "worker_stage", stage="device", t=time.time(), device=str(dev))
+
+pool = torch.from_numpy(cs.observe_rows(0, R, S, cs.OBSERVE_POOL)).to(dev)
+row = torch.empty(R, S, device=dev)
+
+
+def sync():
+    if cuda:
+        torch.cuda.synchronize(dev)
+
+
+def timed(fn):
+    # ms of fn on CUDA events (the host clock on the CPU)
+    if cuda:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1)
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+if cuda:
+    n = 2048
+    a = torch.randn(n, n, device=dev, generator=torch.Generator(dev).manual_seed(1))
+
+    def work(reps):
+        for _ in range(reps):
+            a @ a
+
+    for _ in range(3):
+        work(4)
+    unit = timed(lambda: work(20)) / 20
+else:  # no device: a host sleep of 1 ms per unit stands in for the work
+    n, unit = 0, 1.0
+
+    def work(reps):
+        time.sleep(reps / 1e3)
+
+reps = max(1, round(work_ms / unit))
+nominal = min(timed(lambda: work(reps)) for _ in range(9))  # other load only slows it
+padded = round(reps * cs.SLOWDOWN) if round_no == 0 else reps
+
+
+def push_row(mt, state, i, ratio):
+    row.copy_(pool[i % cs.OBSERVE_POOL])
+    row[0] *= ratio
+    mt.push(state, row)
+
+
+def make_mt():
+    return MeshTelemetry(R, signal_names=[f"s{k}" for k in range(S)], window=W, device=dev)
+
+
+def flagged(report):
+    return sorted(s.rank for s in report.identify_stragglers().by_perf)
+
+
+TEL = ("counts", "cursor", "data", "ewma", "hist_min")
+mt = make_mt()
+state = mt.init_state()
+engine = RemediationEngine(publish_degraded_fn=lambda degraded: None)
+# The launcher's controller acts on the degraded ranks; this rank's engine audits
+# their recovery (a reinstate), as a policy sink.
+policy = HealthVectorPolicy(patience=cs.OBSERVE_PATIENCE, recovery=cs.OBSERVE_RECOVERY,
+                            sinks=[lambda d: engine(d) if not d.newly_degraded else None])
+mgr = LocalCheckpointManager(os.path.join(root, "ckpt"), rank=0)
+step, ratios, restored, carried = 0, [], None, []
+if mgr.find_latest() >= 0:
+    tree, meta = mgr.load_tree(device=dev)
+    state = TelemetryState(**tree["tel"])
+    mt.iteration = int(tree["iteration"])
+    step = int(tree["step"])
+    ratios = tree["ratios"].tolist()
+    with open(os.environ[events.EVENTS_FILE_ENV], "rb") as f:
+        for line in f:
+            try:  # a line still being written is no record yet
+                rec = json.loads(line) if b'"degraded_set"' in line else {}
+            except ValueError:
+                rec = {}
+            if rec.get("kind") == "degraded_set":
+                carried = rec["degraded"]
+    policy._degraded.update(carried)  # the verdict outlives the respawn; streaks do not
+    sync()
+    restored = {k: v.clone() for k, v in [*[(f, getattr(state, f)) for f in TEL],
+                                           ("iteration", tree["iteration"])]}
+    record("example", "worker_stage", stage="restored", t=time.time(), step=step)
+start = step
+masks, recovered_at, step_ms, raw, record_ms = {}, None, [], [], []
+events_file = os.environ.get(events.EVENTS_FILE_ENV)
+offset, outcome_seen = 0, False
+t_start = time.time()
+while True:
+    t0 = time.perf_counter()
+    record("inprocess", "iteration_start", iteration=step)
+    record_ms.append((time.perf_counter() - t0) * 1e3)
+    ms = timed(lambda: work(padded))
+    raw.append(ms / nominal)
+    ratio = round(raw[-1] / quantum) * quantum
+    ratios.append(ratio)
+    push_row(mt, state, step, ratio)
+    step_ms.append(ms)
+    if step == start:
+        record("example", "worker_stage", stage="first_step", t=time.time(), step=step,
+               seconds=ms / 1e3)
+    if step % every == every - 1:
+        state, report = mt.generate_report(state)
+        decision = policy.observe(report)
+        masks[step] = flagged(report)
+        if decision.recovered and recovered_at is None:
+            recovered_at = step
+        record("example", "report", step=step, degraded=sorted(decision.degraded),
+               ratio=statistics.median(raw[-every:]),
+               loop_launches=sk.fused_median_weights.launches_by_mode["loop"])
+        tree = {"tel": {f: getattr(state, f) for f in TEL},
+                "iteration": torch.tensor(mt.iteration, dtype=torch.int64),
+                "step": torch.tensor(step + 1, dtype=torch.int64),
+                "ratios": torch.tensor(ratios, dtype=torch.float64)}
+        mgr.save(step + 1, PyTreeStateDict(tree), is_async=False)
+        if events_file and not outcome_seen:  # the swap's outcome, settled
+            with open(events_file, "rb") as f:
+                f.seek(offset)
+                chunk = f.read()
+            chunk = chunk[:chunk.rfind(b"\\n") + 1]
+            offset += len(chunk)
+            outcome_seen = any(json.loads(line).get("action") == "swap"
+                               for line in chunk.splitlines()
+                               if b'"autoscale_outcome"' in line)
+    step += 1
+    if round_no == 0 and time.time() - t_start > ROUND0_CAP_S:
+        print("no swap stopped round 0", flush=True)
+        sys.exit(3)
+    if round_no > 0 and recovered_at is not None and outcome_seen:
+        break
+    if round_no > 0 and time.time() - t_start > LATER_CAP_S:
+        print(f"round {round_no}: recovered at {recovered_at}, outcome {outcome_seen}",
+              flush=True)
+        sys.exit(4)
+launches = dict(sk.fused_median_weights.launches_by_mode)
+sync()
+# Push per step as phase ``times`` takes it: back-to-back pushes between two events.
+scratch = make_mt()
+scratch_state = scratch.init_state()
+push_back_to_back = timed(lambda: [push_row(scratch, scratch_state, i, 1.0)
+                                   for i in range(200)]) / 200
+
+# The uninterrupted replay, from the recorded ratios: the restored state must equal
+# its state at the restored step, and every report of this round its mask.
+twin, twin_masks, at_restore = make_mt(), {}, None
+twin_state = twin.init_state()
+for i in range(step):
+    if i == start:
+        at_restore = {**{f: getattr(twin_state, f).clone() for f in TEL},
+                      "iteration": torch.tensor(twin.iteration, dtype=torch.int64)}
+    push_row(twin, twin_state, i, ratios[i])
+    if i % every == every - 1:
+        twin_state, rep = twin.generate_report(twin_state)
+        twin_masks[i] = flagged(rep)
+restored_equal = restored is not None and all(  # dtype, shape and bits
+    a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.cpu().view(getattr(torch, cs.INT_VIEWS[a.element_size()])),
+        b.cpu().view(getattr(torch, cs.INT_VIEWS[b.element_size()])))
+    for a, b in ((restored[k], at_restore[k]) for k in restored))
+
+# What each wired events sink costs per record (every step records one).
+probe = events.Event(ts=time.time(), source="example", kind="sink_probe", payload={"i": 0})
+sink_us = {}
+for sink in list(events._sinks):
+    t0 = time.perf_counter()
+    for _ in range(100):
+        sink(probe)
+    sink_us[type(sink).__name__] = (time.perf_counter() - t0) / 100 * 1e6
+mgr.close()
+print("RESULT " + json.dumps({
+    "round": round_no, "start_step": start, "final_step": step, "carried": carried,
+    "recovered_step": recovered_at, "restored_equal": restored_equal,
+    "masks_equal_uninterrupted": all(twin_masks[k] == v for k, v in masks.items()),
+    "masks": {str(k): v for k, v in masks.items()}, "launches": launches,
+    "work": {"matmul_n": n, "reps": reps, "ms_per_matmul": unit, "nominal_ms": nominal},
+    "step_work_ms_median": statistics.median(step_ms),
+    "push_ms_per_step": push_back_to_back,
+    "record_ms_median": statistics.median(record_ms), "sink_us_per_record": sink_us,
+    "ratio_median": statistics.median(raw),
+    "ratios_pushed": sorted(set(ratios)),
+    "nvcc_runs": _build.nvcc_runs}), flush=True)
+"""
+
+
+class EndpointProbe:
+    """``run_launcher``'s side thread for observe_path: waits for the telemetry
+    server's port file, then GETs each endpoint of ``OBSERVE_ENDPOINTS`` every
+    ``interval`` s until the launcher exits, keeping each answer's status and
+    latency, and the newest JSON document of each."""
+
+    def __init__(self, interval: float = 0.5):
+        self.interval = interval
+        self.status: dict[str, list] = {p: [] for p in OBSERVE_ENDPOINTS}
+        self.ms: dict[str, list] = {p: [] for p in OBSERVE_ENDPOINTS}
+        self.docs: dict[str, object] = {}
+
+    def __call__(self, events, run_dir, stop):
+        import urllib.error
+        import urllib.request
+
+        port_file = run_dir / "telemetry.port"
+        while not stop.is_set() and not port_file.exists():
+            stop.wait(0.05)
+        port = None
+        while not stop.is_set() and port is None:
+            try:
+                port = int(port_file.read_text().strip())
+            except (OSError, ValueError):
+                stop.wait(0.05)
+        while not stop.is_set():
+            for path in OBSERVE_ENDPOINTS:
+                t0 = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                                timeout=5) as r:
+                        status, body = r.status, r.read()
+                except urllib.error.HTTPError as e:
+                    status, body = e.code, e.read()
+                except OSError:
+                    continue  # the server is stopping with the launcher
+                self.status[path].append(status)
+                if status == 200:
+                    self.ms[path].append((time.perf_counter() - t0) * 1e3)
+                    if path != "/metrics":
+                        self.docs[path] = json.loads(body)
+            stop.wait(self.interval)
+
+
+class StreamIncidents:
+    """``run_launcher``'s side thread for observe_path: the port's ``IncidentEngine``
+    in auto mode, fed the job's shared events stream as it grows, as an operator's
+    engine tailing the job would be. The launcher's own engine opens incidents on
+    worker failures only (explicit mode); a degraded rank with no failure is an
+    auto-mode incident. Its own records go to the same stream."""
+
+    def __init__(self, incidents_dir):
+        self.incidents_dir = incidents_dir
+        self.engine = None
+
+    def __call__(self, events, run_dir, stop):
+        from tpu_resiliency_torch.launcher.incident import IncidentEngine
+        from tpu_resiliency_torch.utils import events as events_mod
+
+        self.engine = IncidentEngine(str(self.incidents_dir), node_id="observe",
+                                     events_file=str(events), auto_open=True)
+        sink = events_mod.JsonlSink(str(events))
+        events_mod.add_sink(sink)
+        offset = 0
+        try:
+            while True:
+                done = stop.is_set()
+                try:
+                    with open(events, "rb") as f:
+                        f.seek(offset)
+                        chunk = f.read()
+                except OSError:
+                    chunk = b""
+                end = chunk.rfind(b"\n") + 1
+                offset += end
+                for line in chunk[:end].splitlines():
+                    try:
+                        self.engine.observe(json.loads(line))
+                    except ValueError:
+                        continue
+                if done:
+                    break
+                stop.wait(0.1)
+        finally:
+            events_mod.remove_sink(sink)
+
+
+def swap_segments(recs, promoted_pid) -> dict:
+    """The swap cut from the run's event stream, in seconds: the degraded set to the
+    decision (the swap's ``remediation_action``, the restart request: the controller
+    records its ``autoscale_decision`` once the actuation returned), then the decision
+    to the promoted spare's first step in the segments ``restart_segments`` uses
+    (teardown: to the end of round 0's ``launcher.round`` span; rendezvous; promotion;
+    startup; CUDA context and kernel load; restore; first step)."""
+    degraded = first(recs, "degraded_set", newly=[0])["ts"]
+    decided = first(recs, "remediation_action", action="spare_swap")["ts"]
+    torn = min(e["ts"] for e in recs if e.get("kind") == "span_end"
+               and e.get("span") == "launcher.round" and e["ts"] >= decided)
+    placed = first(recs, "rendezvous_round", round=1)["ts"]
+    promoted = first(recs, "worker_promoted", round=1)["ts"]
+    stage = {e["stage"]: e["t"] for e in recs
+             if e.get("kind") == "worker_stage" and e.get("pid") == promoted_pid}
+    return {
+        "degraded_to_decision": decided - degraded,
+        "teardown": torn - decided,
+        "rendezvous": placed - torn,
+        "promotion": promoted - placed,
+        "startup": stage["imports"] - promoted,
+        "cuda_context_and_kernel_load": stage["device"] - stage["imports"],
+        "restore": stage["restored"] - stage["device"],
+        "first_step": stage["first_step"] - stage["restored"],
+        "decision_to_first_step": stage["first_step"] - decided,
+        "decision_recorded_after_s": first(recs, "autoscale_decision", action="swap")["ts"]
+        - decided,
+    }
+
+
+def observe_path(smoke, device="cuda", ranks=R, signals=S, window=W, work_ms=OBSERVE_WORK_MS,
+                 quantum=OBSERVE_QUANTUM, restart_costs=None, timeout=OBSERVE_TIMEOUT_S):
+    """Phase 17: the launcher's detect, decide and act loop on the card (see the
+    module's docstring). ``restart_costs``: the in-job respawn's segments in the
+    ``BENCH_restart.json`` schema (default: ``injob_path``'s, this run's). Returns the
+    workers' ``loop`` launches."""
+    import glob
+    import shutil
+    import tempfile
+
+    from tpu_resiliency_torch.launcher import autoscale
+    from tpu_resiliency_torch.launcher.incident import read_incident
+    from tpu_resiliency_torch.utils.metrics import MetricsRegistry, aggregate
+
+    here = Path(__file__).resolve().parent
+    costs = restart_costs or getattr(smoke, "restart_costs", None)
+    if costs is None:
+        raise AssertionError("observe_path prices with injob_path's respawns: run it first")
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="observe-path-"))
+    try:
+        workdir, incidents, metrics = root / "cwd", root / "incidents", root / "metrics.json"
+        workdir.mkdir()
+        (workdir / "BENCH_restart.json").write_text(json.dumps(
+            {**costs, "source": "chip_smoke.py injob_path, this run"}))
+        script = root / "observe_worker.py"
+        script.write_text(OBSERVE_CHILD)
+        probe, incident_tail = EndpointProbe(), StreamIncidents(incidents)
+        run = run_launcher(
+            "observe", root, [*OBSERVE_LAUNCHER, "--metrics-file", str(metrics),
+                              "--incidents-dir", str(incidents)],
+            [str(script), str(root), "" if device == "cuda" else device, str(ranks),
+             str(signals), str(window), str(OBSERVE_REPORT_EVERY), str(work_ms),
+             str(quantum)],
+            timeout=timeout, cwd=workdir, during=(probe, incident_tail))
+        recs = run["events"]
+        rounds = sorted({e["round"] for e in recs if e.get("kind") == "rendezvous_round"})
+        if run["rc"] != 0 or rounds != [0, 1]:
+            raise AssertionError(f"observe: rc {run['rc']}, rounds {rounds}:\n"
+                                 f"{run['out'][-2000:]}\n{run['err'][-4000:]}")
+        decisions = [e for e in recs if e.get("kind") == "autoscale_decision"]
+        swaps = [e for e in decisions if e["action"] == "swap"]
+        if len(swaps) != 1 or swaps[0]["victims"] != [0] or swaps[0]["outcome"] != "ok":
+            raise AssertionError(f"observe: the swap decisions {swaps}, all {decisions}")
+        named = {r for e in recs if e.get("kind") == "degraded_set"
+                 for r in e["degraded"] + e["newly"]}
+        if named != {0}:
+            raise AssertionError(f"observe: the policy named ranks {sorted(named)}, not [0]")
+        promoted = [e for e in recs if e.get("kind") == "worker_promoted" and e["round"] == 1]
+        if [e["outcome"] for e in promoted] != ["promoted"]:
+            raise AssertionError(f"observe: round 1 was not the parked spare's promotion: "
+                                 f"{promoted}")
+        new_pid = promoted[0]["worker_pid"]
+        # Other decisions may come (a page alert's checkpoint); the swap and the
+        # reinstate must each come once, in order.
+        actions = [(e["action"], e["outcome"]) for e in recs
+                   if e.get("kind") == "remediation_action"]
+        recovered = first(recs, "degraded_set", recovered=[0])
+        reinstate = first(recs, "remediation_action", action="reinstate")
+        if actions.count(("spare_swap", "ok")) != 1 or [a for a, _ in actions].count(
+                "spare_swap") != 1 or actions.count(("reinstate", "ok")) != 1 or \
+                reinstate["ts"] < recovered["ts"]:
+            raise AssertionError(f"observe: remediation actions {actions}")
+        (res,) = results_of(run)
+        checks = {"restored_equal": True, "masks_equal_uninterrupted": True, "carried": [0],
+                  "round": 1, "nvcc_runs": 0}
+        bad = {k: res.get(k) for k, v in checks.items() if res.get(k) != v}
+        if bad or res["recovered_step"] is None:
+            raise AssertionError(f"observe: round 1 {bad}: {res}")
+        artifacts = incident_tail.engine.artifacts if incident_tail.engine else []
+        if len(artifacts) != 1:
+            raise AssertionError(f"observe: incident artifacts {artifacts}")
+        doc = read_incident(artifacts[0])
+        phases = [m["phase"] for m in doc["chain"]]
+        kinds = {(m["phase"], m["kind"]) for m in doc["chain"]}
+        if (doc["trigger"], doc["outcome"], doc["ranks"]) != ("degraded", "recovered", [0]) or \
+                not {("detect", "degraded_set"), ("act", "remediation_action"),
+                     ("act", "worker_promoted"), ("recover", "degraded_set")} <= kinds:
+            raise AssertionError(f"observe: the incident {doc['trigger']} {doc['outcome']} "
+                                 f"{doc['ranks']}: {sorted(kinds)}")
+        report = subprocess.run([sys.executable, "-m", "tpu_resiliency_torch.tools.incident_report",
+                                 artifacts[0]], capture_output=True, text=True, timeout=60,
+                                env=child_env(), cwd=here)
+        if report.returncode != 0 or not all(p in report.stdout
+                                             for p in ("DETECT", "ACT", "RECOVER")):
+            raise AssertionError(f"observe: incident_report rc {report.returncode}: "
+                                 f"{report.stdout[-1500:]}{report.stderr[-1500:]}")
+        # The metrics: the offline dump of the stream, and the processes' snapshots merged.
+        dump = subprocess.run([sys.executable, "-m", "tpu_resiliency_torch.tools.metrics_dump",
+                               str(root / "observe.events.jsonl"), "--format", "json"],
+                              capture_output=True, text=True, timeout=60, env=child_env(),
+                              cwd=here)
+        snaps = sorted(glob.glob(str(root / "metrics.*.json")))
+        merged = MetricsRegistry()
+        for path in snaps:
+            merged.merge(json.loads(Path(path).read_text()))
+        offline = aggregate(recs)
+        want = {("tpu_autoscale_decisions_total", (("action", "swap"), ("outcome", "ok"))): 1,
+                ("tpu_remediation_actions_total", (("action", "spare_swap"),
+                                                   ("outcome", "ok"))): 1,
+                ("tpu_remediation_actions_total", (("action", "reinstate"),
+                                                   ("outcome", "ok"))): 1}
+        counted = {}
+        for name, labels in want:
+            counted[f"{name}{dict(labels)}"] = [
+                reg.counter(name, **dict(labels)).value for reg in (merged, offline)]
+        if dump.returncode != 0 or any(v != [want[k], want[k]] for k, v in
+                                       zip(want, counted.values())):
+            raise AssertionError(f"observe: metrics_dump rc {dump.returncode}, counts "
+                                 f"(snapshots, stream) {counted}: {dump.stderr[-1500:]}")
+        dumped = json.loads(dump.stdout)
+        # The endpoints, during the run.
+        silent = [p for p in OBSERVE_ENDPOINTS if 200 not in probe.status[p]]
+        if silent:
+            raise AssertionError(f"observe: no 200 from {silent}: {probe.status}")
+        goodput = probe.docs["/goodput"]
+        wall, phase_sum = goodput["wall_clock_s"], sum(goodput["phases"].values())
+        if abs(phase_sum - wall) > OBSERVE_GOODPUT_TOL * wall:
+            raise AssertionError(f"observe: /goodput's phases sum to {phase_sum} of {wall} s")
+        holders = card_holders(run, {e["pid"] for e in recs if e.get("kind") == "worker_stage"},
+                               promoted=(new_pid, promoted[0]["ts"]))
+        # The swap's forecast: as priced on the card's respawns, and as the repo's CPU
+        # BENCH_restart.json would have priced it.
+        score = float(first(recs, "degraded_set", newly=[0])["scores"]["0"])
+        view = autoscale.ControllerView(now=0.0, world_size=1, target_world=1,
+                                        stragglers={0: score}, spares=1, notices=[],
+                                        step_s=None, steps_since_ckpt=0)
+        card_model = autoscale.CostModel.from_bench(str(workdir))
+        priced = {"card": card_model.estimate("swap", view),
+                  "repo_cpu_bench_restart": autoscale.CostModel.from_bench(
+                      str(here)).estimate("swap", view)}
+        if abs(priced["card"] - swaps[0]["predicted_delta_s"]) > 1e-5:
+            raise AssertionError(f"observe: the swap was priced at "
+                                 f"{swaps[0]['predicted_delta_s']}, the card's model "
+                                 f"{priced['card']}")
+        outcome = first(recs, "autoscale_outcome", action="swap")
+        constants = probe.docs.get("/autoscale", {}).get("cost_model", {})
+        seconds = time.perf_counter() - t0
+        if seconds > OBSERVE_BUDGET_S:
+            raise AssertionError(f"observe: the phase took {seconds:.1f} s, over "
+                                 f"{OBSERVE_BUDGET_S} s")
+        holding = [p for p in stray_processes() if holds_card(p)]
+        if holding:
+            raise AssertionError(f"observe: processes hold the card after the launcher: "
+                                 f"{holding}")
+        launches = res["launches"]["loop"] + max(
+            [e["loop_launches"] for e in recs if e.get("kind") == "report"
+             and e.get("pid") != new_pid] or [0])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    smoke.emit(
+        "observe_path", seconds=seconds, launcher_seconds=run["seconds"], ranks=ranks,
+        signals=signals, window=window, report_every=OBSERVE_REPORT_EVERY,
+        patience=OBSERVE_PATIENCE, recovery=OBSERVE_RECOVERY, work=res["work"],
+        quantum=quantum, round1_ratio_median=res["ratio_median"],
+        ratios_pushed=res["ratios_pushed"],
+        decisions=[{k: d[k] for k in ("action", "victims", "outcome", "predicted_delta_s")}
+                   for d in decisions],
+        remediation_actions=actions,
+        straggler_score=score, controller_restart_s={
+            k: constants.get(k) for k in ("warm_restart_s", "cold_restart_s")},
+        bench_restart_ms=costs,
+        swap_s=swap_segments(recs, new_pid),
+        forecast={"predicted_delta_s": outcome["predicted_delta_s"],
+                  "realized_delta_s": outcome["realized_delta_s"],
+                  "window_s": outcome["window_s"], "priced": priced},
+        incident={"trigger": doc["trigger"], "outcome": doc["outcome"], "slo": doc["slo"],
+                  "chain": [f"{m['phase']}:{m['kind']}" for m in doc["chain"]],
+                  "flight_dumps": len(doc.get("flight") or {})},
+        goodput={"phases": goodput["phases"], "wall_clock_s": wall,
+                 "goodput_ratio": goodput.get("goodput_ratio")},
+        endpoints={p: {"answers": len(probe.status[p]),
+                       "ok": probe.status[p].count(200),
+                       "ms_median": statistics.median(probe.ms[p]) if probe.ms[p] else None,
+                       "ms_max": max(probe.ms[p]) if probe.ms[p] else None}
+                   for p in OBSERVE_ENDPOINTS},
+        alerts_fired=[{"rule": e["rule"], "severity": e.get("severity"),
+                       "detail": e.get("detail")}
+                      for e in recs if e.get("kind") == "alert_fired"],
+        metrics={"counts_snapshots_stream": counted, "snapshot_files": len(snaps),
+                 "dump_series": len(dumped.get("metrics", dumped))},
+        per_step={"work_ms_median": res["step_work_ms_median"],
+                  "push_ms_per_step": res["push_ms_per_step"],
+                  "record_ms_median_metrics_file_wired": res["record_ms_median"],
+                  "sink_us_per_record": res["sink_us_per_record"]},
+        round1={k: res[k] for k in ("start_step", "final_step", "recovered_step",
+                                    "restored_equal", "masks_equal_uninterrupted")},
+        loop_launches=launches, **holders, strays_killed=run["strays_killed"])
+    return launches
+
+
 def main() -> int:
     import os
 
@@ -3502,6 +4142,10 @@ def main() -> int:
     # 16. parallel path: the mesh telemetry workers' loop launches --------------------
     torch.cuda.empty_cache()
     path_launches["loop"] += parallel_path(smoke)
+
+    # 17. observe path: the detect, decide and act loop; its workers' loop launches ----
+    torch.cuda.empty_cache()
+    path_launches["loop"] += observe_path(smoke)
 
     kernels = []
     for mode in sk.MODES:

@@ -1,7 +1,7 @@
 """The port's persistent compilation cache, held against
 ``tests/platform/test_compile_cache.py``: its manifest, sweep and outcome tests run here
-on ``tpu_resiliency_torch.platform.compile_cache`` (``torch_port_tests``); its metrics
-bridge is the JAX package's ``utils/metrics.py`` (not ported yet). Its two JIT tests
+on ``tpu_resiliency_torch.platform.compile_cache`` (``torch_port_tests``), its metrics
+bridge on the port's ``utils/metrics.py``. Its two JIT tests
 compile a JAX program in a worker; the port's cache is torch.compile's, answered
 below: a worker applying the launcher's variable gets Inductor's and Triton's cache
 directories under the cache dir and records one ``compile_cache`` event, whose outcome
@@ -24,9 +24,6 @@ from tpu_resiliency_torch.platform import compile_cache
 
 port_tests(
     "tests/platform/test_compile_cache.py", globals(),
-    edits=[("from tpu_resiliency_torch.utils.metrics import MetricsRegistry, observe_record",
-            "from tpu_resiliency.utils.metrics import MetricsRegistry, observe_record",
-            "utils/metrics.py is not ported: the JAX package's registry reads the records")],
     leave_out={
         "test_cold_then_warm_start_hits": "compiles with JAX; answered below for torch.compile",
         "test_truncated_entry_is_purged_to_cold_compile": "compiles with JAX; answered below",

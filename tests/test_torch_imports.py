@@ -151,8 +151,26 @@ PARALLEL_MODULES = (
     "tpu_resiliency_torch.scripts.bench_model",
 )
 
+#: Modules of the observability slice, each imported by the subprocess check.
+OBSERVE_MODULES = (
+    "tpu_resiliency_torch.utils.metrics",
+    "tpu_resiliency_torch.utils.timeseries",
+    "tpu_resiliency_torch.utils.goodput",
+    "tpu_resiliency_torch.utils.byteflow",
+    "tpu_resiliency_torch.tools",
+    "tpu_resiliency_torch.tools.metrics_dump",
+    "tpu_resiliency_torch.tools.events_summary",
+    "tpu_resiliency_torch.telemetry.remediation",
+    "tpu_resiliency_torch.launcher.autoscale",
+    "tpu_resiliency_torch.telemetry.watchtower",
+    "tpu_resiliency_torch.tools.alerts_cli",
+    "tpu_resiliency_torch.launcher.incident",
+    "tpu_resiliency_torch.tools.incident_report",
+    "tpu_resiliency_torch.launcher.telemetry",
+)
+
 ALL_SLICES = (SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES + FT_MODULES + MODEL_MODULES
-              + PARALLEL_MODULES)
+              + PARALLEL_MODULES + OBSERVE_MODULES)
 
 
 def test_importing_every_module_loads_no_jax():

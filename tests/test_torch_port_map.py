@@ -42,30 +42,13 @@ NOT_YET_PORTED = (
     "tpu_resiliency.fleet.aggregator",
     "tpu_resiliency.fleet.registry",
     "tpu_resiliency.fleet.server",
-    # launcher
-    "tpu_resiliency.launcher.autoscale",
-    "tpu_resiliency.launcher.incident",
-    "tpu_resiliency.launcher.telemetry",
-    # telemetry
-    "tpu_resiliency.telemetry.remediation",
-    "tpu_resiliency.telemetry.watchtower",
     # tools
-    "tpu_resiliency.tools",
-    "tpu_resiliency.tools.alerts_cli",
     "tpu_resiliency.tools.ckpt_info",
     "tpu_resiliency.tools.critpath",
-    "tpu_resiliency.tools.events_summary",
     "tpu_resiliency.tools.fleet_cli",
     "tpu_resiliency.tools.fleetd",
-    "tpu_resiliency.tools.incident_report",
-    "tpu_resiliency.tools.metrics_dump",
     "tpu_resiliency.tools.store_info",
     "tpu_resiliency.tools.trace_export",
-    # utils
-    "tpu_resiliency.utils.byteflow",
-    "tpu_resiliency.utils.goodput",
-    "tpu_resiliency.utils.metrics",
-    "tpu_resiliency.utils.timeseries",
 )
 
 #: The modules of the straggler-detection slice: each has its counterpart.
@@ -190,6 +173,27 @@ PARALLEL_SLICE = (
     "tpu_resiliency.parallel.pipeline",
 )
 
+#: The modules of the observability slice (the launcher's detect, decide and act loop:
+#: the metrics family, remediation, the autoscale controller, the watchtower, the
+#: incident engine, the telemetry server and the CLI tools their tests use): each has
+#: its counterpart.
+OBSERVE_SLICE = (
+    "tpu_resiliency.utils.metrics",
+    "tpu_resiliency.utils.timeseries",
+    "tpu_resiliency.utils.goodput",
+    "tpu_resiliency.utils.byteflow",
+    "tpu_resiliency.tools",
+    "tpu_resiliency.tools.metrics_dump",
+    "tpu_resiliency.tools.events_summary",
+    "tpu_resiliency.telemetry.remediation",
+    "tpu_resiliency.launcher.autoscale",
+    "tpu_resiliency.telemetry.watchtower",
+    "tpu_resiliency.tools.alerts_cli",
+    "tpu_resiliency.launcher.incident",
+    "tpu_resiliency.tools.incident_report",
+    "tpu_resiliency.launcher.telemetry",
+)
+
 #: The repo-root examples and scripts the port carries, each at its path under
 #: ``tpu_resiliency_torch/``.
 ROOT_PORTS = (
@@ -285,6 +289,18 @@ def test_the_model_slice_is_ported(module):
 def test_the_parallel_slice_is_ported(module):
     assert module in reference_modules()
     assert has_counterpart(module) and module not in NOT_YET_PORTED
+
+
+@pytest.mark.parametrize("module", OBSERVE_SLICE)
+def test_the_observability_slice_is_ported(module):
+    assert module in reference_modules()
+    assert has_counterpart(module) and module not in NOT_YET_PORTED
+
+
+def test_the_not_yet_ported_list_is_the_last_slice():
+    assert len(NOT_YET_PORTED) == 10
+    assert all(m.startswith(("tpu_resiliency.fleet", "tpu_resiliency.tools."))
+               for m in NOT_YET_PORTED)
 
 
 @pytest.mark.parametrize("path", ROOT_PORTS)

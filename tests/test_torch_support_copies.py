@@ -1,8 +1,11 @@
 """Copies stay copies: each module the port copies from the JAX package (the support
 of the in-process restart slice, the modules of ``inprocess/`` that hold no JAX, the
 checkpoint layer but for ``checkpoint/state_dict.py`` and ``staging.py``, which are
-ports of their own, and the fault-tolerance slice: the watchdog, the launcher, the
-FT callbacks, ``platform/ipc.py``, ``compile_cache.py`` and ``utils/stackdump.py``)
+ports of their own, the fault-tolerance slice: the watchdog, the launcher, the
+FT callbacks, ``platform/ipc.py``, ``compile_cache.py`` and ``utils/stackdump.py``, and
+the observability slice: the event stream, the metrics family, remediation, the
+autoscale controller, the watchtower, the incident engine, the telemetry server and
+their CLI tools)
 must equal the reference's text with its imports rewritten from ``tpu_resiliency.``
 to ``tpu_resiliency_torch.``, except for the edits listed here, each with its reason.
 An edit to a copy has to be added to this list, with why.
@@ -31,7 +34,8 @@ OWN_DOCSTRING = {
     "platform/compile_cache.py": "describes torch.compile's caches, not JAX's",
     "launcher/park.py": "spares preload torch and warm no CUDA context",
     "launcher/proc.py": "workers are CUDA processes, not JAX ones",
-    "launcher/launch.py": "names the port's CLI and the flags it refuses",
+    "launcher/launch.py": "names the port's CLI and the flag it refuses",
+    "utils/events.py": "names the port's copies of the stream's consumers",
     "integrations/ft_callbacks.py": "the loop protocol is no longer JAX's",
     "integrations/preemption.py": "the agreement runs over the process group",
 }
@@ -368,13 +372,7 @@ UNPORTED_FEATURES = '''
 #: those modules: a config or a launcher flag that asks for one fails, never is
 #: silently ignored.
 UNPORTED_FEATURES = {
-    "incidents_dir": "tpu_resiliency/launcher/incident.py",
-    "telemetry_port": "tpu_resiliency/launcher/telemetry.py",
-    "fleet_dir": "tpu_resiliency/launcher/telemetry.py and tpu_resiliency/fleet/",
-    "autoscale": "tpu_resiliency/launcher/autoscale.py and "
-                 "tpu_resiliency/telemetry/remediation.py",
-    "alerts": "tpu_resiliency/telemetry/watchtower.py",
-    "metrics_file": "tpu_resiliency/utils/metrics.py",
+    "fleet_dir": "tpu_resiliency/fleet/",
 }
 
 
@@ -571,6 +569,29 @@ except ImportError:  # pragma: no cover - depends on build_ext having run
         ("AsyncCheckpointer.load(path, rank=self.rank)",
          "AsyncCheckpointer.load(path, rank=self.rank, device=self.device)", "placed on device"),
     ),
+    # -- the observability slice: the launcher's detect, decide and act loop
+    "utils/events.py": (),
+    "utils/metrics.py": (),
+    "utils/timeseries.py": (),
+    "utils/goodput.py": (),
+    "utils/byteflow.py": (),
+    "tools/__init__.py": (),
+    "tools/metrics_dump.py": (),
+    "tools/events_summary.py": (),
+    "telemetry/remediation.py": (),
+    "launcher/autoscale.py": (
+        (re.compile(r"# Prefer the phase decomposition \(PR \d+\): "),
+         "# Prefer the phase decomposition: ",
+         "the reference's change numbers name nothing in the port"),
+    ),
+    "telemetry/watchtower.py": (),
+    "tools/alerts_cli.py": (),
+    "launcher/incident.py": (
+        (re.compile(r"tie-breaking \(the PR-\d+ trace ids"), "tie-breaking (the trace ids",
+         "the reference's change numbers name nothing in the port"),
+    ),
+    "tools/incident_report.py": (),
+    "launcher/telemetry.py": (),
     # -- the fault-tolerance slice
     "utils/stackdump.py": (),
     "watchdog/data.py": (),
@@ -766,36 +787,14 @@ def _entry_names(path: str) -> list[str]:
 """, """            raise ValueError(
                 f"unknown alerts mode {self.alerts!r}: want off | on"
             )
-        asked = [name for name, on in (
-            ("incidents_dir", bool(self.incidents_dir)),
-            ("telemetry_port", self.telemetry_port is not None),
-            ("fleet_dir", bool(self.fleet_dir)),
-            ("autoscale", self.autoscale != "off"),
-        ) if on]
-        if asked:
-            raise NotImplementedError("; ".join(unported(name) for name in asked))
-""", "a config that asks for an unported feature fails at construction"),
-        (re.compile(r'        self\.incidents: Optional\["IncidentEngine"\] = None\n.*?'
-                    r"            self\.incidents\.attach\(\)\n", re.S),
-         "        #: the incident plane (``launcher/incident.py``) is not ported:\n"
-         "        #: AgentConfig refuses ``incidents_dir``\n"
-         "        self.incidents = None\n", "the incident plane is not ported"),
-        (re.compile(r"(    def _start_telemetry\(self\) -> None:\n).*?(?=\n    # -- autoscale)",
-                    re.S),
-         r'\1        raise NotImplementedError(unported("telemetry_port"))\n',
-         "the telemetry server and watchtower are not ported"),
-        (re.compile(r"(    def _start_autoscale\(self\) -> None:\n).*?(?=\n    # -- hang forensics)",
-                    re.S),
-         r'\1        raise NotImplementedError(unported("autoscale"))\n',
-         "the autoscale controller and remediation are not ported"),
+        if self.fleet_dir:
+            raise NotImplementedError(unported("fleet_dir"))
+""", "a config that asks for the fleet plane fails at construction"),
     ),
     "launcher/launch.py": (
         ("from tpu_resiliency_torch.launcher.agent import AgentConfig, ElasticAgent, WorkersFailed\n",
          "from tpu_resiliency_torch.launcher.agent import (\n    AgentConfig,\n    ElasticAgent,\n"
          "    WorkersFailed,\n    unported,\n)\n", "the refusal's message"),
-        ("from tpu_resiliency_torch.utils.events import EVENTS_FILE_ENV, METRICS_FILE_ENV\n",
-         "from tpu_resiliency_torch.utils.events import EVENTS_FILE_ENV\n",
-         "--metrics-file is refused"),
         ('        description="Fault-tolerant elastic launcher for TPU training workloads.",',
          '        description="Fault-tolerant elastic launcher for PyTorch training workloads "\n'
          '        "on CUDA cards.",', "the port's workloads"),
@@ -818,29 +817,14 @@ def _entry_names(path: str) -> list[str]:
         "$TPU_RESILIENCY_COMPILE_CACHE_DIR to workers): a respawned worker's "
         "first compiled step loads the previous round's artifacts instead of "
         "re-compiling; corrupt entries are swept to a cold \"""", "torch.compile's caches"),
-        ('        "--alerts",\n        choices=("off", "on"),\n        default="on",',
-         '        "--alerts",\n        choices=("off", "on"),\n        default=None,',
-         "an explicit --alerts on is refused, so the default must be told apart"),
         ("""    # Flag validation first: reject before ANY side effects (env mutation,
     # store hosting).
 """, """    # Flag validation first: reject before ANY side effects (env mutation,
     # store hosting).
-    refused = [name for name, asked in (
-        ("metrics_file", args.metrics_file),
-        ("incidents_dir", args.incidents_dir),
-        ("telemetry_port", args.telemetry_port is not None),
-        ("fleet_dir", args.fleet_dir),
-        ("autoscale", args.autoscale != "off"),
-        ("alerts", args.alerts == "on"),
-    ) if asked]
-    for name in refused:
-        log.error(f"--{name.replace('_', '-')}: {unported(name)}")
-    if refused:
+    if args.fleet_dir:
+        log.error(f"--fleet-dir: {unported('fleet_dir')}")
         return 2
-""", "a flag whose module is not ported exits with an error naming it"),
-        (re.compile(r"    if args\.fleet_dir:\n        from tpu_resiliency_torch\.utils\.events "
-                    r"import JOB_ENV\n.*?os\.path\.abspath\(args\.metrics_file\)\n", re.S), "",
-         "--fleet-dir and --metrics-file are refused above"),
+""", "--fleet-dir, whose modules are not ported, exits with an error naming them"),
         ("""        # JAX_COMPILATION_CACHE_DIR makes plain-JAX workers (no tpu_resiliency
         # import) cache too. Sweep HERE, before any worker starts, so a cache
         # corrupted between jobs is purged exactly once up front.
@@ -852,8 +836,6 @@ def _entry_names(path: str) -> list[str]:
         os.environ[compile_cache.CACHE_DIR_ENV] = cache_dir
         os.environ.update(compile_cache.compiler_cache_env(cache_dir))""",
          "torch.compile's cache variables"),
-        ("        alerts=args.alerts,", '        alerts=args.alerts or "off",',
-         "no watchtower runs without telemetry"),
     ),
 }
 

@@ -1,9 +1,8 @@
 """The port's rank monitor and its client, held against ``tests/watchdog/test_monitor.py``
 and ``tests/watchdog/test_hang_forensics.py``: each of their tests runs here on
 ``tpu_resiliency_torch.watchdog`` (``torch_port_tests``), with the port's store, UDS
-framing and spawned monitor processes. The metrics bridge those tests check is the
-JAX package's ``utils/metrics.py`` (not ported yet), fed the port's event records: the
-records are one schema.
+framing and spawned monitor processes, and the metrics bridge those tests check on the
+port's ``utils/metrics.py``.
 
 Beside them, the wire is one: a port ``RankMonitorClient`` drives a JAX-package
 ``RankMonitorServer`` and the other way round (init, config reply, heartbeats,
@@ -48,12 +47,8 @@ def coord_store(kv_server):
     store.close()
 
 
-METRICS = ("from tpu_resiliency_torch.utils.metrics import MetricsRegistry, observe_record",
-           "from tpu_resiliency.utils.metrics import MetricsRegistry, observe_record",
-           "utils/metrics.py is not ported: the JAX package's registry reads the port's records")
-
 port_tests("tests/watchdog/test_monitor.py", globals())
-port_tests("tests/watchdog/test_hang_forensics.py", globals(), edits=[METRICS])
+port_tests("tests/watchdog/test_hang_forensics.py", globals())
 
 
 # -- one wire, both ways ---------------------------------------------------------------

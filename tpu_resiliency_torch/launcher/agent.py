@@ -50,13 +50,7 @@ log = get_logger(__name__)
 #: those modules: a config or a launcher flag that asks for one fails, never is
 #: silently ignored.
 UNPORTED_FEATURES = {
-    "incidents_dir": "tpu_resiliency/launcher/incident.py",
-    "telemetry_port": "tpu_resiliency/launcher/telemetry.py",
-    "fleet_dir": "tpu_resiliency/launcher/telemetry.py and tpu_resiliency/fleet/",
-    "autoscale": "tpu_resiliency/launcher/autoscale.py and "
-                 "tpu_resiliency/telemetry/remediation.py",
-    "alerts": "tpu_resiliency/telemetry/watchtower.py",
-    "metrics_file": "tpu_resiliency/utils/metrics.py",
+    "fleet_dir": "tpu_resiliency/fleet/",
 }
 
 
@@ -153,14 +147,8 @@ class AgentConfig:
             raise ValueError(
                 f"unknown alerts mode {self.alerts!r}: want off | on"
             )
-        asked = [name for name, on in (
-            ("incidents_dir", bool(self.incidents_dir)),
-            ("telemetry_port", self.telemetry_port is not None),
-            ("fleet_dir", bool(self.fleet_dir)),
-            ("autoscale", self.autoscale != "off"),
-        ) if on]
-        if asked:
-            raise NotImplementedError("; ".join(unported(name) for name in asked))
+        if self.fleet_dir:
+            raise NotImplementedError(unported("fleet_dir"))
 
 
 class WorkersFailed(RuntimeError):
@@ -211,9 +199,18 @@ class ElasticAgent:
         self.autoscale = None
         self.watchtower = None
         self._metrics_store = None
-        #: the incident plane (``launcher/incident.py``) is not ported:
-        #: AgentConfig refuses ``incidents_dir``
-        self.incidents = None
+        self.incidents: Optional["IncidentEngine"] = None
+        if cfg.incidents_dir:
+            from tpu_resiliency_torch.launcher.incident import IncidentEngine
+            from tpu_resiliency_torch.utils.events import FLIGHT_DIR_ENV
+
+            # One export wires every child's flight recorder (and this
+            # process's own, through the lazy events env wiring).
+            os.environ[FLIGHT_DIR_ENV] = cfg.incidents_dir
+            self.incidents = IncidentEngine(
+                cfg.incidents_dir, node_id=cfg.node_id
+            )
+            self.incidents.attach()
 
     def _pause(self, timeout: float) -> None:
         if self._wake.wait(timeout):
@@ -222,7 +219,59 @@ class ElasticAgent:
     # -- telemetry ---------------------------------------------------------
 
     def _start_telemetry(self) -> None:
-        raise NotImplementedError(unported("telemetry_port"))
+        from tpu_resiliency_torch.launcher.telemetry import PORT_FILE_NAME, TelemetryServer
+        from tpu_resiliency_torch.platform.shardstore import connect_store
+        from tpu_resiliency_torch.platform.store import AUTH_KEY_ENV
+        from tpu_resiliency_torch.utils.events import EVENTS_FILE_ENV
+
+        # A dedicated store client for the snapshot pull: the server thread
+        # must not share the agent's coordination connection. Built by the
+        # shard-aware factory so a clique's snapshot keys are found on
+        # whichever shard they hashed to.
+        self._metrics_store = connect_store(
+            self.cfg.store_host, self.cfg.store_port,
+            prefix=self.cfg.metrics_push_prefix, timeout=10.0,
+            auth_key=os.environ.get(AUTH_KEY_ENV) or None,
+        )
+        store = self._metrics_store
+
+        def fetch_snapshots() -> list:
+            return [v for v in store.prefix_get("").values() if isinstance(v, dict)]
+
+        def store_stats() -> dict:
+            # The /storez source: the store's own self-telemetry op, over the
+            # same dedicated client the snapshot pull uses. A pre-telemetry
+            # store's unknown-op error (or a dead store) degrades the /storez
+            # document inside TelemetryServer — never the endpoint.
+            return store.client.store_stats()
+
+        watchtower = None
+        if self.cfg.alerts != "off":
+            from tpu_resiliency_torch.telemetry.watchtower import Watchtower
+
+            # rules=None picks up $TPU_RESILIENCY_ALERT_RULES overrides; the
+            # server's refresh() feeds it the events tail (stream clock), and
+            # start() pumps that tail from the watchtower's timer thread.
+            watchtower = Watchtower(job=self.cfg.job_id)
+        self.watchtower = watchtower
+        self.telemetry = TelemetryServer(
+            port=self.cfg.telemetry_port or 0,
+            port_file=os.path.join(self.cfg.run_dir, PORT_FILE_NAME),
+            events_file=os.environ.get(EVENTS_FILE_ENV) or None,
+            fetch_snapshots=fetch_snapshots,
+            health_fn=self.health,
+            census_fn=self.hang_census,
+            autoscale_fn=(
+                self.autoscale.status if self.autoscale is not None else None
+            ),
+            store_stats_fn=store_stats,
+            fleet_dir=self.cfg.fleet_dir or None,
+            job=self.cfg.job_id,
+            node_id=self.cfg.node_id,
+            incidents_dir=self.cfg.incidents_dir or None,
+            watchtower=watchtower,
+        )
+        self.telemetry.start()
 
     # -- autoscale ---------------------------------------------------------
 
@@ -235,7 +284,48 @@ class ElasticAgent:
             return 0
 
     def _start_autoscale(self) -> None:
-        raise NotImplementedError(unported("autoscale"))
+        """Wire the goodput-optimal controller (``launcher/autoscale.py``):
+        signals from the shared events stream, actuators through a
+        remediation engine (swap/exclude audit semantics) and restart-round
+        requests (shrink/re-expand — the workers' ``load_resharded`` resume
+        makes the resized world trainable)."""
+        from tpu_resiliency_torch.launcher.autoscale import (
+            AutoscaleController,
+            CostModel,
+        )
+        from tpu_resiliency_torch.telemetry.remediation import RemediationEngine
+        from tpu_resiliency_torch.utils.events import EVENTS_FILE_ENV
+
+        engine = RemediationEngine(
+            spare_capacity_fn=self._spare_capacity,
+            request_restart_fn=lambda reason: self.rdzv.request_restart(
+                f"autoscale: {reason}"
+            ),
+            publish_degraded_fn=lambda degraded: None,
+            cooldown=10.0,
+        )
+        watchtower = self.watchtower
+        self.autoscale = AutoscaleController(
+            mode=self.cfg.autoscale,
+            cost_model=CostModel.from_bench(os.getcwd()),
+            remediation=engine,
+            spare_capacity_fn=self._spare_capacity,
+            active_alerts_fn=(
+                watchtower.active_alerts if watchtower is not None else None
+            ),
+            shrink_fn=lambda victims, reason: self.rdzv.request_restart(
+                f"autoscale shrink {victims}: {reason}"
+            ),
+            expand_fn=lambda reason: self.rdzv.request_restart(
+                f"autoscale re-expand: {reason}"
+            ),
+            target_world=self.cfg.max_nodes * self.cfg.nproc_per_node,
+            events_file=os.environ.get(EVENTS_FILE_ENV) or None,
+            interval=max(0.25, self.cfg.monitor_interval),
+        )
+        self.autoscale.start()
+        if self.telemetry is not None:
+            self.telemetry.autoscale_fn = self.autoscale.status
 
     # -- hang forensics ----------------------------------------------------
 

@@ -2,11 +2,9 @@
 
 A copy of ``tpu_resiliency/launcher/launch.py`` (``tpu-ft-launcher``) with every flag of
 its parser. Warm spares preload ``torch``; ``--compile-cache-dir`` exports
-torch.compile's cache variables (``platform/compile_cache.py``). The flags whose
-modules the port does not hold yet (``--metrics-file``, ``--incidents-dir``,
-``--telemetry-port``, ``--fleet-dir``, ``--autoscale advise|act``, ``--alerts on``)
-exit with an error naming the module (``agent.UNPORTED_FEATURES``). Its docstring
-follows.
+torch.compile's cache variables (``platform/compile_cache.py``). ``--fleet-dir``,
+whose modules the port does not hold yet, exits with an error naming them
+(``agent.UNPORTED_FEATURES``). Its docstring follows.
 
 Analogue of the reference's ``ft_launcher`` console script
 (``fault_tolerance/launcher.py:2065 main``, CLI surface ``:739 LaunchConfig``): spawns
@@ -46,7 +44,7 @@ from tpu_resiliency_torch.platform.store import (
     KVServer,
     store_answers,
 )
-from tpu_resiliency_torch.utils.events import EVENTS_FILE_ENV
+from tpu_resiliency_torch.utils.events import EVENTS_FILE_ENV, METRICS_FILE_ENV
 from tpu_resiliency_torch.utils.logging import get_logger
 from tpu_resiliency_torch.utils.tracing import ensure_trace_id, span
 from tpu_resiliency_torch.watchdog.config import FaultToleranceConfig
@@ -289,7 +287,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--alerts",
         choices=("off", "on"),
-        default=None,
+        default="on",
         help="SLO watchtower (telemetry/watchtower.py): burn-rate and "
         "anomaly alert rules evaluated over in-process time-series rings "
         "fed from the shared events stream, served at GET /alerts and "
@@ -533,17 +531,8 @@ def main(argv: Optional[list[str]] = None) -> int:
 
     # Flag validation first: reject before ANY side effects (env mutation,
     # store hosting).
-    refused = [name for name, asked in (
-        ("metrics_file", args.metrics_file),
-        ("incidents_dir", args.incidents_dir),
-        ("telemetry_port", args.telemetry_port is not None),
-        ("fleet_dir", args.fleet_dir),
-        ("autoscale", args.autoscale != "off"),
-        ("alerts", args.alerts == "on"),
-    ) if asked]
-    for name in refused:
-        log.error(f"--{name.replace('_', '-')}: {unported(name)}")
-    if refused:
+    if args.fleet_dir:
+        log.error(f"--fleet-dir: {unported('fleet_dir')}")
         return 2
     if args.module and args.no_python:
         log.error("--module and --no-python are mutually exclusive")
@@ -573,6 +562,15 @@ def main(argv: Optional[list[str]] = None) -> int:
         # One exported variable wires the whole tree: the agent records through it
         # and every spawned worker/monitor inherits it (events.py env sink).
         os.environ[EVENTS_FILE_ENV] = os.path.abspath(args.events_file)
+    if args.fleet_dir:
+        from tpu_resiliency_torch.utils.events import JOB_ENV
+
+        # Fleet scope: stamp the job identity onto every event this process
+        # tree records, so streams several jobs share (or fleetd later
+        # merges) slice back to one job with --job.
+        os.environ[JOB_ENV] = args.rdzv_id
+    if args.metrics_file:
+        os.environ[METRICS_FILE_ENV] = os.path.abspath(args.metrics_file)
     if args.ckpt_coding:
         from tpu_resiliency_torch.checkpoint.coding import CODING_ENV
 
@@ -684,7 +682,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         fleet_dir=os.path.abspath(args.fleet_dir) if args.fleet_dir else "",
         job_id=args.rdzv_id,
         autoscale=args.autoscale,
-        alerts=args.alerts or "off",
+        alerts=args.alerts,
         # rdzv-id namespacing keeps two jobs on one store endpoint from
         # merging each other's metrics snapshots into their /metrics views.
         metrics_push_prefix=f"jobmetrics/{args.rdzv_id}/",

@@ -1,27 +1,27 @@
 """Structured event stream: machine-consumable records of the resiliency story.
 
 A copy of ``tpu_resiliency/utils/events.py`` with the same record schema and the same
-variable, ``TPU_RESILIENCY_EVENTS_FILE``: a process of either package appends its
-events, one JSON line each, to the one stream the launcher names, and every
-consumer of the JAX package's stream (``tools/events_summary.py``,
-``tools/trace_export.py``) reads the port's records as its own.
+variables: a process of either package appends its events, one JSON line each, to the
+one stream the launcher names (``TPU_RESILIENCY_EVENTS_FILE``), and every consumer of
+the JAX package's stream (``tools/events_summary.py``, ``tools/metrics_dump.py``,
+``utils/metrics.py``, ``utils/goodput.py``) reads the port's records as its own.
 
-The JSONL sink and the flight recorder named by ``TPU_RESILIENCY_FLIGHT_DIR``
-(``utils/flight_recorder.py``) are wired as the reference wires them. The metrics
-bridges the reference also wires from the environment, ``TPU_RESILIENCY_METRICS_FILE``
-and ``TPU_RESILIENCY_METRICS_PUSH`` (``utils/metrics.py``), belong to a module the
-port does not hold yet: a process that sets one is warned once, and the variable has
-no effect.
+The environment wires the sinks as the reference wires them: the JSONL stream, the
+metrics snapshot (``TPU_RESILIENCY_METRICS_FILE``, a ``MetricsSink``), the metrics
+push to the coordination store (``TPU_RESILIENCY_METRICS_PUSH``, a
+``MetricsPublisher``) and the flight recorder (``TPU_RESILIENCY_FLIGHT_DIR``).
 
 Design:
 
 - :class:`Event`: ``(ts, source, kind, payload)`` plus process identity (pid, rank
   when known) and, when tracing is active, ``trace_id``/``span_id`` causal context
-  — everything JSON-serializable.
+  (``utils/tracing.py``) — everything JSON-serializable.
 - Pluggable sinks registered per process (``add_sink``); the default wiring is
-  environment-driven: ``TPU_RESILIENCY_EVENTS_FILE=<path>`` attaches a JSONL sink.
-  JSONL lines are written in one ``write()`` call — atomic under POSIX append
-  semantics for lines < PIPE_BUF, so all processes of a node can share one file.
+  environment-driven: ``TPU_RESILIENCY_EVENTS_FILE=<path>`` attaches a JSONL sink,
+  so a launcher enables one stream for itself and every worker it spawns by
+  exporting a single variable. JSONL lines are written in one ``write()`` call —
+  atomic under POSIX append semantics for lines < PIPE_BUF, so all processes of a
+  node can share one file.
 - ``record(source, kind, **payload)``: fire-and-forget; a sink failure never
   breaks the workload (events are observability, not control flow).
 - ``@prof``: times a callable and records a ``timing`` event with success/failure,
@@ -42,12 +42,20 @@ from tpu_resiliency_torch.utils.logging import get_logger
 log = get_logger(__name__)
 
 EVENTS_FILE_ENV = "TPU_RESILIENCY_EVENTS_FILE"
-#: The reference's metrics-snapshot and metrics-push variables: their sinks are not
-#: ported yet (``UNPORTED_ENVS`` below).
+#: Set to a path to ALSO bridge every record into the metrics registry and
+#: snapshot it as JSON (``utils/metrics.py``); ``<pid>`` is inserted before the
+#: extension so each process of a node drops its own snapshot (no clobbering).
 METRICS_FILE_ENV = "TPU_RESILIENCY_METRICS_FILE"
 #: Set to a directory to ALSO keep a crash-surviving flight-recorder ring of
-#: this process's recent events (``utils/flight_recorder.py``).
+#: this process's recent events (``utils/flight_recorder.py``) — the incident
+#: plane's last-seconds-before-death record, persisted continuously so even a
+#: SIGKILL leaves a dump behind.
 FLIGHT_DIR_ENV = "TPU_RESILIENCY_FLIGHT_DIR"
+#: Set to ``host:port[:prefix]`` to ALSO publish this process's metrics
+#: snapshot to the coordination store every few seconds
+#: (``utils/metrics.py:MetricsPublisher``) — the goodput plane's push path:
+#: the launcher's telemetry endpoint merges the published snapshots into one
+#: job-level view instead of scraping every rank's files.
 METRICS_PUSH_ENV = "TPU_RESILIENCY_METRICS_PUSH"
 #: Set to a job identity (the launcher exports its --rdzv-id when --fleet-dir
 #: is on) to stamp ``job`` into every event's envelope. Fleet-scope consumers
@@ -145,10 +153,10 @@ _sinks_lock = threading.Lock()
 _env_wired_for: Optional[str] = None
 
 #: ``() -> (trace_id, span_id)`` supplier consulted by ``record``. The default
-#: reads the tracing env vars directly, so a process stamps the context a
-#: launcher exported onto its events; a tracer may install its own provider
-#: (``set_context_provider``). (A hook, not an import: events must stay the
-#: dependency root.)
+#: reads the tracing env vars directly so a process that never imports
+#: ``utils/tracing`` still stamps inherited context onto its events;
+#: ``utils/tracing`` swaps in its thread-local-aware provider on import.
+#: (A hook, not an import: events must stay the dependency root.)
 TRACE_ID_ENV = "TPU_RESILIENCY_TRACE_ID"
 PARENT_SPAN_ENV = "TPU_RESILIENCY_PARENT_SPAN"
 
@@ -195,28 +203,28 @@ def remove_sink(sink: Callable[[Event], None]) -> None:
 
 
 def clear_sinks() -> None:
-    global _env_wired_for, _flight_wired_for
     with _sinks_lock:
         _sinks.clear()
+    global _env_wired_for, _metrics_wired_for, _flight_wired_for, _push_wired_for
     _env_wired_for = None
+    _metrics_wired_for = None
     _flight_wired_for = None
+    _push_wired_for = None
 
 
+_metrics_wired_for: Optional[str] = None
 _flight_wired_for: Optional[str] = None
-
-#: Variables of the reference's event wiring whose modules the port does not hold
-#: yet; each is warned about once per process.
-UNPORTED_ENVS = (METRICS_FILE_ENV, METRICS_PUSH_ENV)
-_warned_unported: set[str] = set()
+_push_wired_for: Optional[str] = None
 
 
 def _wire_env_sink() -> None:
-    """Attach (once per path) the JSONL sink named by $TPU_RESILIENCY_EVENTS_FILE.
+    """Attach (once per path) the JSONL sink named by $TPU_RESILIENCY_EVENTS_FILE
+    and the metrics bridge named by $TPU_RESILIENCY_METRICS_FILE.
     Re-checked on every record so a launcher exporting the variable after import
     still takes effect, and forked/spawned children wire themselves lazily.
     The flight recorder named by $TPU_RESILIENCY_FLIGHT_DIR rides the same
     lazy wiring (flight_recorder.install registers itself as a sink)."""
-    global _env_wired_for, _flight_wired_for
+    global _env_wired_for, _metrics_wired_for, _flight_wired_for, _push_wired_for
     path = os.environ.get(EVENTS_FILE_ENV)
     if path and path != _env_wired_for:
         with _sinks_lock:
@@ -227,22 +235,48 @@ def _wire_env_sink() -> None:
                 except OSError as e:
                     log.warning(f"cannot open events file {path!r}: {e}")
                     _env_wired_for = path  # don't retry every event
+    mpath = os.environ.get(METRICS_FILE_ENV)
+    if mpath and mpath != _metrics_wired_for:
+        with _sinks_lock:
+            if _metrics_wired_for != mpath:
+                try:
+                    # Lazy import: events is the dependency root; metrics
+                    # imports events, never the reverse at module load.
+                    from tpu_resiliency_torch.utils.metrics import MetricsSink
+
+                    base, ext = os.path.splitext(mpath)
+                    _sinks.append(
+                        MetricsSink(json_path=f"{base}.{os.getpid()}{ext or '.json'}")
+                    )
+                except Exception as e:
+                    log.warning(f"cannot wire metrics snapshots to {mpath!r}: {e}")
+                _metrics_wired_for = mpath
+    ppath = os.environ.get(METRICS_PUSH_ENV)
+    if ppath and ppath != _push_wired_for:
+        with _sinks_lock:
+            if _push_wired_for != ppath:
+                try:
+                    # Lazy import, same reason as the metrics bridge: events
+                    # stays the dependency root.
+                    from tpu_resiliency_torch.utils.metrics import MetricsPublisher
+
+                    _sinks.append(MetricsPublisher.from_env_spec(ppath))
+                except Exception as e:
+                    log.warning(f"cannot wire metrics push to {ppath!r}: {e}")
+                _push_wired_for = ppath
     fpath = os.environ.get(FLIGHT_DIR_ENV)
     if fpath and fpath != _flight_wired_for:
         try:
-            # Lazy import: events stays the dependency root. install() adds the
-            # sink itself. Marked wired only on success so a transient
-            # mkdir/open failure is retried on the next record.
+            # Lazy import for the same reason as the metrics bridge: events
+            # stays the dependency root. install() adds the sink itself.
+            # Marked wired only on success so a transient mkdir/open failure
+            # is retried on the next record, as the lazy wiring promises.
             from tpu_resiliency_torch.utils import flight_recorder
 
             if flight_recorder.install_from_env() is not None:
                 _flight_wired_for = fpath
         except Exception as e:
             log.warning(f"cannot wire flight recorder in {fpath!r}: {e}")
-    for env in UNPORTED_ENVS:
-        if env not in _warned_unported and os.environ.get(env):
-            _warned_unported.add(env)
-            log.warning(f"${env} is set, but its sink is not ported to tpu_resiliency_torch yet")
 
 
 def record(source: str, kind: str, **payload: Any) -> None:
