@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s ``parallel_path`` rehearsed on the CPU at tiny widths:
-``bench_model`` on the host, the pipelined dense step at pp = 1 against the
+``bench_model`` on the host, its model's train step placed on a one-rank mesh against
+the plain step, the pipelined dense step at pp = 1 against the
 unpipelined loss (with the float8_e5m2 control outside the tolerance), ring attention
 at sp = 1 against the dense attention and in the model's loss, and the three examples
 (``moe_pipeline_training``, ``inprocess_restart_train`` with two ranks,
@@ -64,7 +65,9 @@ def test_parallel_path_on_the_cpu():
     assert (inproc["iteration"], inproc["active_world"]) == (1, 1) and inproc["resumed_from"] > 0
     mesh = out["mesh_telemetry"]
     assert [r["flagged"] for r in mesh["results"]] == [[1], None]
-    assert set(out["part_seconds"]) == set("abcdef")
+    step = out["mesh_step"]
+    assert step["rel_err"] <= step["rtol"] and step["wq_placements"] == ["Shard(dim=2)"]
+    assert set(out["part_seconds"]) == set("abcdefg")
 
 
 @pytest.fixture
@@ -75,7 +78,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("part", list("abcdef"))
+@pytest.mark.parametrize("part", list("abcdefg"))
 def test_card_parallel_path_part(cuda, part):
     """Each part of the phase alone on the card at tiny widths (the examples at their
     own sizes). Part (f)'s workers score on the card through a gloo group."""

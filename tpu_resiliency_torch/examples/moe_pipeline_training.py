@@ -15,8 +15,9 @@ Run (4 gloo ranks on the CPU: ``moe_pipeline_split(4)``, pp = 2 x ep = 2)::
         --device cpu --steps 12 --fault-step 5
 
 Without ``--device`` it runs on the card, one rank by default (pp = ep = 1, a
-one-process NCCL group, the model's tensors plain: DTensor in torch 2.11 refuses the
-attention's head-flattening view on a mesh of one rank). Rank 0 prints ``RESUMED step=<n>`` after the restart and
+one-process NCCL group, the model's tensors plain: a mesh of one rank splits nothing;
+the dense model placed on such a mesh is held to its plain step by ``chip_smoke.py``
+``parallel_path`` (g)). Rank 0 prints ``RESUMED step=<n>`` after the restart and
 ``DONE loss=<x>`` on success.
 
 Where the reference runs one process over 8 virtual devices, the port runs

@@ -278,7 +278,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def _attention(q, k, v, causal_offset: int = 0):
     """Plain causal attention. q: [B, T, H, dh]; k/v: [B, T, Hkv, dh] with
     H % Hkv == 0 (GQA): query heads are grouped per KV head in the einsum itself,
-    so repeated K/V are never materialized."""
+    so repeated K/V are never materialized.
+
+    DTensors run on their local heads (:func:`_attention_on_local_heads`): the
+    grouping reshape and the einsums' flattening views would flatten the head dim,
+    which is sharded over ``tp``, and torch 2.11 refuses that view."""
+    if hasattr(q, "device_mesh"):
+        return _attention_on_local_heads(q, k, v, causal_offset)
     dh = q.shape[-1]
     b, tq, h, _ = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -290,6 +296,39 @@ def _attention(q, k, v, causal_offset: int = 0):
     scores = torch.where(mask[None, None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(b, tq, h, dh)
+
+
+def _attention_on_local_heads(q, k, v, causal_offset: int):
+    """:func:`_attention` of DTensor q/k/v: each rank runs the plain body on its own
+    batch rows (over ``dp``) and KV heads with their query groups (over ``tp``),
+    with the whole sequence, and the result is placed so again. Attention is
+    independent per KV head, and a rank's block of query heads is the groups of its
+    block of KV heads when ``tp`` divides Hkv; otherwise the heads are gathered."""
+    from torch.distributed.tensor import DTensor
+
+    from tpu_resiliency_torch.parallel import mesh as pm
+
+    mesh = q.device_mesh
+    heads = pm.TP if k.shape[2] % pm.axis_sizes(mesh).get(pm.TP, 1) == 0 else None
+    places = pm.placements(mesh, (pm.DP, None, heads, None))
+    q, k, v = (_ContiguousGrad.apply(x.redistribute(mesh, places).to_local())
+               for x in (q, k, v))
+    out = _attention(q, k, v, causal_offset)
+    return DTensor.from_local(out, mesh, places, run_check=False)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: the local body's gradients
+    may come out permuted, and DTensor's backward views (the heads' reshape in
+    :func:`_attn_block`) need the local layout its own ops give."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
 
 
 def adapt_attn_fn(attn_fn, causal_offset: int = 0):

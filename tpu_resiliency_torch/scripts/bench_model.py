@@ -68,7 +68,8 @@ def run(args) -> dict:
     import torch
 
     from tpu_resiliency_torch.models import transformer as tfm
-    from tpu_resiliency_torch.platform.device import card_name_and_power_limit, resolve_device
+    from tpu_resiliency_torch.platform.device import resolve_device
+    from tpu_resiliency_torch.scripts import device_fields
 
     dev = resolve_device(args.device or None)
     cuda = dev.type == "cuda"
@@ -130,9 +131,7 @@ def run(args) -> dict:
         "timer": "cuda_events" if cuda else "host_clock",
         "iters": args.iters,
         "final_loss": float(loss),
-        "backend": dev.type,
-        "device_kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
-        "card": card_name_and_power_limit() if cuda else None,
+        **device_fields(dev),
         "config": args.config,
         "layers": cfg.n_layers,
         "d_model": cfg.d_model,
