@@ -341,24 +341,25 @@ printing one JSON line that carries the card's name and power limit:
    within its latency budget) and config 3 (1024 ranks x 16 signals x window 32, the
    ``loop`` kernel in every round, CUDA events: F1 1.0, the last round's medians equal
    to the sort path's as int32); the ``loop`` kernel is first held to its plain version
-   at that shape. ``bench_restart`` with ``--restarts 2``: in-process restart (two
-   forked ranks under the Wrapper, which touch no device), the launcher's respawn cold
+   at that shape and timed there (device ms and CUDA events). ``bench_restart`` with
+   ``--restarts 2``: in-process restart (two spawned ranks under the Wrapper, which
+   touch no device), the launcher's respawn cold
    and with two warm spares (segments from the event stream; the warm leg promoted), the
    fast-path rendezvous against the ladder (16 agents), and torch.compile's cache
    across a respawn (a worker compiles ``tanh(x @ x.T).sum()`` on the card under
    ``--compile-cache-dir`` and exits 1; round 1 must read ``hit`` after round 0's
    ``miss``, compile in at most 1.5x round 0's time, and the manifest name entries
-   under ``triton/``). ``bench_ckpt_save`` at ``--mb 256 --world 3 --rounds 3``: the
-   sync and pipelined engines of ``LocalCheckpointManager`` in a clique of three
+   under ``triton/``). ``bench_ckpt_save`` at ``--mb 128 --world 2 --rounds 3``: the
+   sync and pipelined engines of ``LocalCheckpointManager`` in a clique of two
    threads on the card (the pipelined foreground at most 0.25x the sync one's, the pool
    hit), the delta leg (frames smaller than the container), the cold leg (every round
-   spilled, none degraded), the single-rank ``AsyncCheckpointer`` and the allocation
-   probe. The rendezvous leg runs first; then the legs that wait on child processes run
-   on two threads beside the save harness: the in-process leg (in a fresh interpreter,
-   which forks its ranks), the launcher's cold and warm respawns, and the compile cache.
-   Each harness's JSON lines are printed; no process this run started may hold the card
-   at the end or be left behind; the phase within 150 s. Config 3's ``loop`` launches go
-   on the ``kernels`` line.
+   spilled, none degraded, the foreground within max(2x, +25 ms) of the run without the
+   tier in one of at most two attempts), the single-rank ``AsyncCheckpointer`` and the
+   allocation probe. The restart harness's legs run one after another with the
+   compile leg beside them; the save harness runs after them, alone. Each harness's
+   JSON lines are printed; no process this run started may hold the card at the end or
+   be left behind; the phase within 150 s. Config 3's ``loop`` launches go on the
+   ``kernels`` line.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
@@ -1350,11 +1351,26 @@ def run_children(children, timeout: float):
             for i, p in enumerate(procs)]
 
 
+def own_resource_tracker(proc: Path) -> bool:
+    """Whether ``/proc/<pid>`` is multiprocessing's resource tracker of this process,
+    which it starts with its first spawned child (``bench_restart``'s in-process ranks)
+    and which exits with it."""
+    import os
+
+    try:
+        cmd = (proc / "cmdline").read_bytes()
+        ppid = int((proc / "stat").read_text().rsplit(")", 1)[1].split()[1])
+    except (OSError, ValueError, IndexError):
+        return False
+    return b"multiprocessing.resource_tracker" in cmd and ppid == os.getpid()
+
+
 def stray_processes() -> list[int]:
     """Processes this run started that outlive their phase, the Wrapper's monitor
     daemons above all (double-forked, so no longer our children): those whose
     environment holds this run's stamp (``RUN_ENV``, set by :func:`main` before the
-    run starts, so every process it starts inherits it). This process is left out."""
+    run starts, so every process it starts inherits it). This process and its resource
+    tracker are left out."""
     import os
 
     token = os.environ.get(RUN_ENV)
@@ -1369,7 +1385,7 @@ def stray_processes() -> list[int]:
             env = (entry / "environ").read_bytes().split(b"\0")
         except OSError:
             continue
-        if stamp in env:
+        if stamp in env and not own_resource_tracker(entry):
             found.append(int(entry.name))
     return found
 
@@ -4280,38 +4296,26 @@ def fleet_path(smoke, device="cuda", ranks=R, signals=S, window=W,
 
 
 HARNESS_ITERS = 30  # bench_configs --iters
-HARNESS_CKPT = {"mb": 256, "world": 3, "rounds": 3}  # bench_ckpt_save's clique and legs
+#: bench_ckpt_save's clique and legs at the world and rounds of the reference's own
+#: acceptance (tests/checkpoint/test_ckpt_save_perf.py), so the phase fits its budget:
+#: 256 MiB at world 3 took it past (162.8 s alone on an H100 at 2 rounds, every leg one
+#: after another), and 2 rounds make each median the mean of a cold round and a warm one.
+HARNESS_CKPT = {"mb": 128, "world": 2, "rounds": 3}
 HARNESS_RESTARTS = 2  # bench_restart --restarts
 HARNESS_BUDGET_S = 150.0  # the phase's share of the script's time (ROADMAP ground rules)
 HARNESS_FG_RATIO = 0.25  # pipelined over sync foreground (tests/checkpoint/test_ckpt_save_perf.py)
 HARNESS_COMPILE_RATIO = 1.5  # round 1's compile over round 0's (tests/test_bench_restart.py)
-#: Checks printed but not held: single saves stall 90-120 ms on the card's machine in
-#: either leg of the cold tier's comparison (the leg without it too), so the reference's
-#: non-interference gate (max(2x, +25 ms) over a 9-14 ms foreground) reads that noise.
-HARNESS_RECORDED_ONLY = ("cold_foreground_unmoved",)
+HARNESS_LOOP_REPS = 50  # timed calls of the loop kernel at config 3's shape
 
 
-INPROCESS_LEG = """
-import json, sys
-from tpu_resiliency_torch.scripts import bench_restart
-print("RESULT " + json.dumps(bench_restart.bench_inprocess(int(sys.argv[1]))), flush=True)
-"""
-
-
-def inprocess_leg(restarts: int) -> dict:
-    """``bench_restart``'s in-process leg in a fresh interpreter: it forks its ranks, and a
-    fork of a process that ran the earlier phases (CUDA contexts, NCCL groups and their
-    threads) never reached the Wrapper in a whole run on the card."""
-    ((rc, _, tagged, err),) = run_children([(INPROCESS_LEG, [restarts])], timeout=180.0)
-    if rc != 0 or not tagged.get("RESULT"):
-        raise AssertionError(f"the in-process leg: rc {rc}\n{err}")
-    return tagged["RESULT"][0]
-
-
-def harness_checks(configs, ckpt, restart) -> dict:
+def harness_checks(configs, ckpt, restart, cold_attempts) -> dict:
     """The reference's assertions over the three harnesses' results
     (``tests/test_bench_configs.py``, ``tests/test_bench_restart.py``,
-    ``tests/checkpoint/test_ckpt_save_perf.py``) and the phase's own; ``{check: bool}``."""
+    ``tests/checkpoint/test_ckpt_save_perf.py``) and the phase's own; ``{check: bool}``.
+    The cold tier's foreground gate holds if one of ``cold_attempts`` passes it (best of
+    two, the reference's policy for its timing gates)."""
+    from tpu_resiliency_torch.scripts.bench_ckpt_save import cold_foreground_unmoved
+
     c1, c2, c3 = configs[1], configs[2], configs[3]
     (size,) = ckpt["sizes"]
     delta, cold = size["delta"], size["cold"]
@@ -4337,11 +4341,11 @@ def harness_checks(configs, ckpt, restart) -> dict:
         "staging_hit": size["staging"]["hits"] >= 1 and size["staging"]["misses"] <= 2,
         "delta_frame_under_full": delta["frame_bytes"] < delta["full_bytes"]
         and delta["rounds_delta"] >= 1 and delta["applied_ok"] >= 1,
-        "cold_spilled_every_round": cold["spills"] == ckpt["world"] * ckpt["rounds"]
-        and cold["spilled_bytes"] > 0,
-        "cold_not_degraded": cold["degraded"] == 0,
-        "cold_foreground_unmoved": cold["cold_fg_ms"] <= max(cold["base_fg_ms"] * 2.0,
-                                                             cold["base_fg_ms"] + 25.0),
+        "cold_spilled_every_round": all(
+            c["spills"] == ckpt["world"] * ckpt["rounds"] and c["spilled_bytes"] > 0
+            for c in cold_attempts),
+        "cold_not_degraded": all(c["degraded"] == 0 for c in cold_attempts),
+        "cold_foreground_unmoved": any(cold_foreground_unmoved(c) for c in cold_attempts),
         "restart_latencies_positive": inproc > 0 and injob > 0,
         "respawn_segments_add_up": segments_add_up(restart["in_job"])
         and segments_add_up(restart["in_job_warm_spares"]),
@@ -4364,6 +4368,7 @@ def harness_path(smoke, device="cuda", iters=HARNESS_ITERS, ckpt=None, restarts=
 
     import torch
 
+    from tpu_resiliency_torch.ops import kernel_sweep
     from tpu_resiliency_torch.ops import scoring_kernels as sk
     from tpu_resiliency_torch.scripts import (bench_ckpt_save, bench_configs, bench_restart,
                                               device_fields)
@@ -4374,10 +4379,25 @@ def harness_path(smoke, device="cuda", iters=HARNESS_ITERS, ckpt=None, restarts=
     dev_args = [] if cuda else ["--device", "cpu"]
     t_phase = time.perf_counter()
     seconds = {}
-    # The loop kernel at config 3's shape against its plain version, before the count.
-    data, counts, _ = bench_configs.config3_inputs()
-    loop_err = smoke.compare("config3", "loop", torch.tensor(data, device=dev),
-                             torch.tensor(counts, device=dev))[0] if cuda else None
+    # The loop kernel at config 3's shape against its plain version, and its time (device
+    # ms and CUDA events, the L2 flushed before each call), before the count.
+    loop = {}
+    if cuda:
+        data, counts, _ = bench_configs.config3_inputs()
+        x, c = torch.tensor(data, device=dev), torch.tensor(counts, device=dev)
+        loop["max_abs_err"] = smoke.compare("config3", "loop", x, c)[0]
+        flush = torch.empty(kernel_sweep.L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+        def call():
+            return sk.fused_median_weights(x, c, mode="loop")
+
+        loop["events_ms"] = kernel_sweep.time_ms(call, HARNESS_LOOP_REPS, flush)
+        loop["ms"] = kernel_sweep.device_ms(call, HARNESS_LOOP_REPS, flush)
+        # Each input read once, the medians and weights written once.
+        loop["bound_ms"] = (x.numel() * 4 + c.numel() * 4 + 2 * c.numel() * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        loop["shape"] = list(x.shape)
+        del x, c, flush
     root = Path(tempfile.mkdtemp(prefix="harness-path-"))
     try:
         sk.reset_launches()
@@ -4387,56 +4407,54 @@ def harness_path(smoke, device="cuda", iters=HARNESS_ITERS, ckpt=None, restarts=
         seconds["configs"] = time.perf_counter() - t0
         launches = dict(sk.fused_median_weights.launches_by_mode)
 
-        # The restart harness's legs; those that wait on child processes (the in-process
-        # leg's interpreter, the launcher's) run on two threads beside the save harness.
+        # The restart harness's legs in its own order, the compile leg on a thread beside
+        # the others (one after another they took the phase past its budget: 159.9 s on
+        # an H100's host, the compile leg 77.1 s of it); then the save harness alone.
         fields = device_fields(dev)
-        legs = {
-            "in_process": ("in-process", lambda: inprocess_leg(restarts)),
-            "rendezvous_fastpath": ("rendezvous-fastpath",
-                                    bench_restart.bench_rendezvous_fastpath),
-            "in_job": ("in-job", bench_restart.bench_injob),
-            "in_job_warm_spares": ("in-job-warm",
-                                   lambda: bench_restart.bench_injob(warm_spares=2)),
-            "compile_cache": ("compile-cache",
-                              lambda: bench_restart.bench_compile_cache(device)),
-        }
+        legs = (
+            ("in_process", "in-process", lambda: bench_restart.bench_inprocess(restarts)),
+            ("in_job", "in-job", bench_restart.bench_injob),
+            ("in_job_warm_spares", "in-job-warm",
+             lambda: bench_restart.bench_injob(warm_spares=2)),
+            ("rendezvous_fastpath", "rendezvous-fastpath",
+             bench_restart.bench_rendezvous_fastpath),
+            ("compile_cache", "compile-cache", lambda: bench_restart.bench_compile_cache(device)),
+        )
         restart_legs, errors = {}, []
 
-        def run_legs(keys):
-            for key in keys:
+        def run_legs(todo):
+            for key, layer, leg in todo:
                 t1 = time.perf_counter()
                 try:
-                    restart_legs[key] = legs[key][1]()
+                    restart_legs[key] = leg()
                 except BaseException as e:  # re-raised on the phase's thread
                     errors.append(e)
                     return
                 finally:
                     seconds[f"restart_{key}"] = time.perf_counter() - t1
+                print(json.dumps({"layer": layer, **restart_legs[key], **fields}), flush=True)
 
-        run_legs(("rendezvous_fastpath",))
-        if errors:
-            raise errors[0]
-        beside = [threading.Thread(target=run_legs, args=(keys,)) for keys in (
-            ("in_process", "in_job", "in_job_warm_spares"), ("compile_cache",))]
-        for t in beside:
-            t.start()
-        t0 = time.perf_counter()
+        beside = threading.Thread(target=run_legs, args=(legs[-1:],))
+        beside.start()
         try:
-            saves = bench_ckpt_save.run(bench_ckpt_save.parse_args(
-                ["--mb", str(ckpt["mb"]), "--world", str(ckpt["world"]), "--rounds",
-                 str(ckpt["rounds"]), *dev_args]))
+            run_legs(legs[:-1])
         finally:
-            seconds["ckpt_save"] = time.perf_counter() - t0
-            for t in beside:
-                t.join()
+            beside.join()
         if errors:
             raise errors[0]
-        for key, (layer, _) in legs.items():
-            print(json.dumps({"layer": layer, **restart_legs[key], **fields}), flush=True)
-        restart = {**bench_restart.summarize(*(restart_legs[k] for k in (
-            "in_process", "in_job", "in_job_warm_spares", "rendezvous_fastpath",
-            "compile_cache"))), **fields}
+        restart = {**bench_restart.summarize(*(restart_legs[k] for k, _, _ in legs)), **fields}
+        t0 = time.perf_counter()
+        saves = bench_ckpt_save.run(bench_ckpt_save.parse_args(
+            ["--mb", str(ckpt["mb"]), "--world", str(ckpt["world"]), "--rounds",
+             str(ckpt["rounds"]), *dev_args]))
+        seconds["ckpt_save"] = time.perf_counter() - t0
         print(json.dumps(saves), flush=True)
+        cold_attempts = [saves["sizes"][0]["cold"]]
+        if cuda and not bench_ckpt_save.cold_foreground_unmoved(cold_attempts[0]):
+            t0 = time.perf_counter()  # the second of the gate's two attempts
+            cold_attempts.append(bench_ckpt_save.bench_cold_leg(
+                ckpt["world"], ckpt["mb"], ckpt["rounds"], str(root / "cold-again"), device=dev))
+            seconds["ckpt_cold_again"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if cuda:
@@ -4444,7 +4462,7 @@ def harness_path(smoke, device="cuda", iters=HARNESS_ITERS, ckpt=None, restarts=
     if launches != dict(sk.fused_median_weights.launches_by_mode):
         raise AssertionError(f"harness_path: the restart and save harnesses launched a median "
                              f"kernel: {sk.fused_median_weights.launches_by_mode}")
-    checks = harness_checks(configs, saves, restart)
+    checks = harness_checks(configs, saves, restart, cold_attempts)
     manifest = restart["compile_cache"]["manifest_entries"]
     checks["compile_cache_manifest_names_triton"] = manifest["triton"] > 0 if cuda else True
     checks["loop_launched"] = launches["loop"] == iters + 1 if cuda else launches["loop"] == 0
@@ -4455,18 +4473,19 @@ def harness_path(smoke, device="cuda", iters=HARNESS_ITERS, ckpt=None, restarts=
     elapsed = time.perf_counter() - t_phase
     checks["within_budget"] = elapsed <= budget_s
     # A CPU rehearsal holds no speed gate of the card's: there the port's pipelined save
-    # misses the reference's foreground gate (ROADMAP Queue 3), and the threads beside it
-    # load the host.
-    recorded = HARNESS_RECORDED_ONLY + (() if cuda else ("pipelined_fg_ratio",))
+    # misses the reference's foreground gate (ROADMAP Queue 3), and a loaded host moves
+    # single saves by tens of ms.
+    recorded = () if cuda else ("cold_foreground_unmoved", "pipelined_fg_ratio")
     smoke.emit("harness_path", seconds=elapsed, budget_s=budget_s, part_seconds=seconds,
                sizes={"iters": iters, **ckpt, "restarts": restarts}, checks=checks,
-               recorded_only=recorded, cold=saves["sizes"][0]["cold"],
-               loop_launches=launches["loop"], loop_max_abs_err_config3=loop_err,
+               recorded_only=recorded, cold_attempts=cold_attempts,
+               loop_launches=launches["loop"], loop_config3=loop,
                config3_report_ms=configs[3]["report_ms"], config3_timer=configs[3]["timer"],
                fg_ratio=saves["sizes"][0]["fg_ratio"],
                compile_ms=[restart["compile_cache"]["first_jit_ms"],
                            restart["compile_cache"]["restart_jit_ms"]],
                compile_outcomes=restart["compile_cache"]["outcomes"],
+               compile_ran_beside=[key for key, _, _ in legs[:-1]],
                compile_manifest_entries=manifest, strays_killed=strays, card_holders=holders)
     failed = sorted(k for k, ok in checks.items() if not ok and k not in recorded)
     if failed:

@@ -52,6 +52,7 @@ def test_harness_path_on_the_cpu():
     assert out["compile_outcomes"] == ["miss", "hit"]
     assert out["compile_manifest_entries"]["inductor"] > 0
     assert out["config3_timer"] == "host_clock" and out["loop_launches"] == 0  # no kernel
+    assert out["loop_config3"] == {} and len(out["cold_attempts"]) == 1
     assert out["strays_killed"] == [] and out["card_holders"] == []
 
 
@@ -68,4 +69,5 @@ def test_harness_path_alone_on_the_card(cuda):
     assert all(ok for k, ok in out["checks"].items() if k not in out["recorded_only"]), \
         out["checks"]
     assert out["loop_launches"] == 31 and out["config3_timer"] == "cuda_events"
+    assert out["loop_config3"]["shape"] == [1024, 16, 32] and out["loop_config3"]["ms"] > 0
     assert out["compile_manifest_entries"]["triton"] > 0

@@ -64,3 +64,36 @@ def test_stray_processes_are_this_runs_only(monkeypatch, tmp_path):
                 os.kill(pid, 9)
             except ProcessLookupError:
                 pass
+
+
+# Spawns a child, which starts multiprocessing's resource tracker beside it, and
+# reports both as ``stray_processes`` sees them.
+TRACKER = """
+import json, multiprocessing as mp, time
+from pathlib import Path
+import chip_smoke
+p = mp.get_context("spawn").Process(target=time.sleep, args=(30,))
+p.start()
+trackers = [int(e.name) for e in Path("/proc").iterdir()
+            if e.name.isdigit() and chip_smoke.own_resource_tracker(e)]
+found = chip_smoke.stray_processes()
+p.kill()
+p.join()
+print(json.dumps({"child": p.pid, "trackers": trackers, "found": found}))
+"""
+
+
+def test_the_runs_own_resource_tracker_is_no_stray():
+    """A spawned child is a stray while it lives; the resource tracker its parent
+    started for it is not: it exits with the parent."""
+    import json
+    from pathlib import Path
+
+    repo = str(Path(chip_smoke.__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=repo, **{chip_smoke.RUN_ENV: "run-c"})
+    out = subprocess.run([sys.executable, "-c", TRACKER], capture_output=True, text=True,
+                         env=env, cwd=repo, timeout=60)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    assert len(got["trackers"]) == 1 and got["child"] in got["found"]
+    assert not set(got["trackers"]) & set(got["found"])

@@ -3,7 +3,13 @@
 JAX's 8 virtual CPU devices) and against ``tests/models/test_multihost_mesh.py`` and
 the sharded case of ``tests/models/test_transformer.py``: the specs leaf by leaf, the
 splits, the checkpoint layout, and ``dp = 2`` and ``tp = 2`` train steps over two gloo
-ranks against one process and the reference.
+ranks against one process (losses, gradients, weights) and the reference (losses).
+
+The ``tp = 2`` step runs again, ``gpu``-marked, under the torch of the card's machine
+(2.11 there, which refused the grouped attention's view that flattens a head dim sharded
+over ``tp``; the attention of DTensor q/k/v now runs on each rank's local heads,
+``models/transformer.py`` ``_attention_on_local_heads``). Its gloo ranks run on that
+machine's CPU; its jax is a CPU build, so this file imports there.
 """
 
 import socket
@@ -148,19 +154,27 @@ pm.distribute_model(model, mesh, pm.param_specs(cfg))
 tokens = pm.distribute_batch(torch.from_numpy(np.load(args["dir"] + "/tokens.npy")), mesh)
 step, init_opt = tfm.make_train_step(cfg)
 opt = init_opt(model)
-losses = [float(step(model, opt, tokens)[2]) for _ in range(3)]
+losses = [float(step(model, opt, tokens)[2])]
+grads = {n: p.grad.full_tensor().numpy().tolist() for n, p in model.named_parameters()}
+losses += [float(step(model, opt, tokens)[2]) for _ in range(2)]
 wq = model.layers["wq"]
-result({"losses": losses, "wq": [repr(p) for p in wq.placements],
+result({"losses": losses, "grads": grads, "wq": [repr(p) for p in wq.placements],
         "wq_local": list(wq.to_local().shape),
         "wq_after": wq.full_tensor().detach().numpy().tolist()})
 """
 
 
-@pytest.mark.parametrize("split", [{"dp": 2}, {"tp": 2}])
-def test_sharded_train_step_matches_one_process_and_the_reference(tmp_path, split):
+@pytest.mark.parametrize("split", [
+    {"dp": 2}, {"tp": 2},
+    pytest.param({"tp": 2}, marks=pytest.mark.gpu, id="tp2-under-the-cards-torch")])
+def test_sharded_train_step_matches_one_process_and_the_reference(tmp_path, split, request):
     """As ``test_multihost_mesh.py``: the same global batch (``rng(7)``, [4, 32]) and
     the reference's weights, three train steps; the two ranks agree bit for bit, and
-    match one process and the reference within 1e-4 relative (that test's bound)."""
+    match one process and the reference within 1e-4 relative (that test's bound); the
+    first step's gradients and the last weights match one process's within 1e-4
+    relative and 1e-6 absolute."""
+    if request.node.get_closest_marker("gpu") and not torch.cuda.is_available():
+        pytest.skip("needs the card's machine (its torch)")
     cfg_r = ref_tfm.TransformerConfig.tiny(n_layers=2, dtype=jnp.float32)
     weights = numpy_tree(ref_tfm.init_params(jax.random.PRNGKey(0), cfg_r))
     tokens = np.random.default_rng(7).integers(0, cfg_r.vocab_size, (4, 32)).astype(np.int64)
@@ -180,8 +194,14 @@ def test_sharded_train_step_matches_one_process_and_the_reference(tmp_path, spli
                             tfm.params_from_reference(weights, device="cpu"))
     step, init_opt = tfm.make_train_step(model.cfg)
     opt = init_opt(model)
-    one = [float(step(model, opt, torch.from_numpy(tokens))[2]) for _ in range(3)]
+    one = [float(step(model, opt, torch.from_numpy(tokens))[2])]
+    grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
+    one += [float(step(model, opt, torch.from_numpy(tokens))[2]) for _ in range(2)]
     np.testing.assert_allclose(runs[0]["losses"], one, rtol=1e-5)
+    assert sorted(runs[0]["grads"]) == sorted(grads)
+    for name, want in grads.items():
+        np.testing.assert_allclose(np.asarray(runs[0]["grads"][name]), want, rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
     np.testing.assert_allclose(np.asarray(runs[0]["wq_after"]),
                                model.layers["wq"].detach().numpy(), rtol=1e-4, atol=1e-6)
 
@@ -192,6 +212,18 @@ def test_sharded_train_step_matches_one_process_and_the_reference(tmp_path, spli
         params, state, loss = jax.jit(step_r)(params, state, jnp.asarray(tokens, jnp.int32))
         want.append(float(loss))
     np.testing.assert_allclose(runs[0]["losses"], want, rtol=1e-4)
+
+
+def test_plain_attention_is_unchanged_for_plain_tensors():
+    """Plain q/k/v keep the grouped einsum body: the same bits as it written out here."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 16, h, 8, generator=g) for h in (4, 2, 2))
+    qg = q.reshape(2, 16, 2, 2, 8)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() / np.sqrt(8)
+    mask = torch.arange(16)[:, None] >= torch.arange(16)[None, :]
+    p = torch.softmax(torch.where(mask[None, None, None], s, -1e30), dim=-1)
+    want = torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(2, 16, 4, 8)
+    assert torch.equal(tfm._attention(q, k, v), want)
 
 
 def test_tree_shardings_place_per_spec(one_rank_group):

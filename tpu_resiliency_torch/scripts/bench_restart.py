@@ -3,12 +3,13 @@
 Port of ``scripts/bench_restart.py``: the same four legs, options and keys, on the
 port's ``inprocess.Wrapper``, launcher and rendezvous.
 
-- **In-process engine latency** (world 2, forked ranks): a rank's fn raises; the
-  latency is fault → fn re-entry on the SAME process, covering quiesce, abort,
-  finalize, health check, iteration barrier, and rank reassignment. Measured on the
-  faulting rank and on the healthy peer. The ranks' fn touches no device, as the
-  reference's does not; fork them from a fresh process (a fork of one that ran CUDA
-  and NCCL work may never reach the Wrapper).
+- **In-process engine latency** (world 2, ranks in fresh interpreters): a rank's fn
+  raises; the latency is fault → fn re-entry on the SAME process, covering quiesce,
+  abort, finalize, health check, iteration barrier, and rank reassignment. Measured
+  on the faulting rank and on the healthy peer. The ranks' fn touches no device, as
+  the reference's does not. The reference forks its ranks; these are spawned, since
+  a fork of a process that ran CUDA and NCCL work (the caller's) may never reach the
+  Wrapper.
 - **In-job respawn latency** (the port's launcher, 2 workers): a worker exits
   nonzero; the latency is worker exit → re-spawned worker's entry, decomposed from the
   launcher's own event stream by ``tools/critpath.py`` ``restart_decomposition`` into
@@ -112,7 +113,7 @@ def _inproc_rank(rank: int, port: int, n_restarts: int, q) -> None:
 
 def bench_inprocess(n_restarts: int) -> dict:
     port = free_port()
-    ctx = mp.get_context("fork")
+    ctx = mp.get_context("spawn")  # safe from a caller that holds CUDA or NCCL state
     q = ctx.Queue()
     procs = [
         ctx.Process(target=_inproc_rank, args=(r, port, n_restarts, q))
@@ -128,12 +129,14 @@ def bench_inprocess(n_restarts: int) -> dict:
             rank, result, faults, entries = q.get(timeout=1.0)
             out[rank] = (result, faults, entries)
         except Exception:
-            pass
+            if not any(p.is_alive() for p in procs) and q.empty():
+                break  # every rank is gone: nothing more will come
     for p in procs:
         p.join(20.0)
         if p.is_alive():
             p.terminate()
-    assert out[0][0] == "done" and out[1][0] == "done", out
+    assert [out.get(r, (None,))[0] for r in range(2)] == ["done", "done"], (
+        out, [p.exitcode for p in procs])
 
     _, faults, entries0 = out[0]
     _, _, entries1 = out[1]
