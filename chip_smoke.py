@@ -2038,15 +2038,19 @@ def card_pids() -> dict[int, int]:
     return pids
 
 
-def holds_card(pid: int) -> bool:
+def holds_card(pid: int, proc: Path = Path("/proc")) -> bool:
     """Whether ``pid`` has a card's device file open (``/dev/nvidia<N>``: a CUDA
-    context; the control and UVM files alone are not one)."""
+    context; the control and UVM files alone are not one) while it still has its
+    address space. An exiting process drops its address space (its command line
+    reads empty) before it closes its files, so it can show device files with no
+    context behind them: the first child of the Wrapper monitor's double fork
+    inherits a worker's and exits at once. Its command line is read after its files,
+    so a non-empty one means the address space was there while the files were open."""
     try:
-        fds = Path(f"/proc/{pid}/fd")
-        for fd in fds.iterdir():
+        for fd in (proc / str(pid) / "fd").iterdir():
             target = str(fd.readlink())
             if target.startswith("/dev/nvidia") and target[len("/dev/nvidia"):].isdigit():
-                return True
+                return (proc / str(pid) / "cmdline").read_bytes() != b""
     except OSError:
         pass
     return False
@@ -2171,9 +2175,17 @@ def run_launcher(tag, root, launcher_args, worker_argv, timeout, cwd=None, durin
             "watch": watch, "agent": p.pid, "seconds": seconds, "strays_killed": len(killed)}
 
 
-def results_of(run) -> list[dict]:
-    return [json.loads(ln[len("RESULT "):]) for ln in run["out"].splitlines()
+def result_records(text: str) -> list[dict]:
+    """The ``RESULT`` records of a process's output. Other processes of a job write to
+    the same file, and a line of theirs can land between a record's JSON and its
+    newline: each record is the JSON value at the start of its line."""
+    decode = json.JSONDecoder().raw_decode
+    return [decode(ln[len("RESULT "):])[0] for ln in text.splitlines()
             if ln.startswith("RESULT ")]
+
+
+def results_of(run) -> list[dict]:
+    return result_records(run["out"])
 
 
 def first(recs, kind, **match):
@@ -2897,10 +2909,10 @@ def model_path(smoke, device="cuda", dense=None, moe_cfg=None, seq=MODEL_SEQ,
         raise AssertionError(f"the preemption save landed at {rec.get('preempt_step')}, the loop "
                              f"stopped at {result['stopped_at']}")
     out, err = rec["child"]
-    results = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+    results = result_records(out)
     if loader.returncode != 0 or not results:
         raise AssertionError(f"the fresh interpreter failed to load the container: {err[-2000:]}")
-    loaded = json.loads(results[0][len("RESULT "):])
+    loaded = results[0]
     if loaded["digests"] != rec["digests"] or loaded["count"] != MODEL_NOTICE_STEP + 1:
         bad = sum(a != b for a, b in zip(loaded["digests"], rec["digests"]))
         raise AssertionError(f"the container loads {bad} leaves other than the state at the "
@@ -4175,8 +4187,7 @@ def fleet_path(smoke, device="cuda", ranks=R, signals=S, window=W,
                 cli[f"{view_name}_{fmt}"] = secs
         # fleet-b's own artifacts: the restart's critical path, the trace, the root.
         recs_b = tails["fleet-b"].poll()
-        (res_b,) = [json.loads(ln[len("RESULT "):]) for ln in (
-            root / "fleet-b.out").read_text().splitlines() if ln.startswith("RESULT ")]
+        (res_b,) = result_records((root / "fleet-b.out").read_text())
         stages = [e for e in recs_b if e.get("kind") == "worker_stage"]
         b_workers = sorted({e["pid"] for e in stages}, key=lambda p: min(
             e["t"] for e in stages if e["pid"] == p))

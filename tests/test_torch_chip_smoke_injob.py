@@ -59,3 +59,10 @@ def test_the_layered_scenario_on_a_cpu_worker(tmp_path):
     assert fields["rounds"] == [0, 1] and "HealthCheckError" in fields["round0_failure"]
     assert fields["nested_restarter_layers"] == {"InJob": True, "InProcess": True}
     assert fields["round1"]["iterations"] == [0] and loops == 0
+
+
+@pytest.mark.parametrize("tail", ["", "[2026-01-01 00:00:00,000] [INFO] [launcher] round 1"],
+                         ids=["whole-line", "another-process-after-the-record"])
+def test_result_records_read_the_json_at_the_start_of_each_line(tail):
+    out = f'log\nRESULT {{"round": 1, "masks": {{"100": [3]}}}}{tail}\nRESULT [0]\n'
+    assert cs.result_records(out) == [{"round": 1, "masks": {"100": [3]}}, [0]]

@@ -1,13 +1,16 @@
 """``chip_smoke.py`` reaps only the processes its own run started: those whose
 environment holds the run's stamp (``RUN_ENV``), the Wrapper's double-forked monitor
 daemons included, and never another run's or a process that merely runs a file of
-the same name.
+the same name; and it counts a process as holding the card only while the process
+still has its address space.
 """
 
 import os
 import subprocess
 import sys
 import time
+
+import pytest
 
 import chip_smoke
 
@@ -97,3 +100,22 @@ def test_the_runs_own_resource_tracker_is_no_stray():
     got = json.loads(out.stdout.splitlines()[-1])
     assert len(got["trackers"]) == 1 and got["child"] in got["found"]
     assert not set(got["trackers"]) & set(got["found"])
+
+
+@pytest.mark.parametrize("files, cmdline, held", [
+    (["/dev/nvidia0", "/dev/nvidiactl"], b"python\0-m\0worker\0", True),
+    # On its way out: the address space is gone (an empty command line) before the
+    # files close, as the Wrapper monitor's first fork is when it exits.
+    (["/dev/nvidia0", "/dev/nvidiactl"], b"", False),
+    (["/dev/nvidiactl", "/dev/nvidia-uvm"], b"python\0", False),  # no card's file
+    (None, None, False),  # already reaped
+], ids=["context", "exiting", "control-files-only", "gone"])
+def test_holds_card_needs_a_card_file_and_an_address_space(tmp_path, files, cmdline, held):
+    pid = 4242
+    if files is not None:
+        fd = tmp_path / str(pid) / "fd"
+        fd.mkdir(parents=True)
+        for n, target in enumerate(files):
+            (fd / str(n + 3)).symlink_to(target)
+        (tmp_path / str(pid) / "cmdline").write_bytes(cmdline)
+    assert chip_smoke.holds_card(pid, proc=tmp_path) is held

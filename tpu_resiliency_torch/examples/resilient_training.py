@@ -53,6 +53,7 @@ import argparse  # noqa: E402
 import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import sys  # noqa: E402
 import threading  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -358,6 +359,9 @@ def main():
               "nvcc_runs": _build.nvcc_runs, "device": str(dev),
               "first_step_ms": step_seconds[0] * 1e3,
               "step_ms_median": float(np.median(step_seconds)) * 1e3, **checks}
+    # The launcher and the job's other processes write to the same file: the record
+    # leaves in one write, with nothing of this process's buffered before it.
+    sys.stdout.flush()
     print("RESULT " + json.dumps(result), flush=True)
     print(f"[rank {rank}] round {round_no}: done at step {ctx.step}", flush=True)
 
