@@ -167,9 +167,9 @@ printing one JSON line that carries the card's name and power limit:
    bit-identical; then ``load_resharded_tree`` of the two containers on rank 0's disk
    onto one rank must equal their concatenation; no process may be left. (c)
    ``run_training`` with ``HierarchicalCheckpointCallback`` (local tier every 2 steps,
-   async) over 4 steps of (a)'s state with in-place updates; ``restore_latest`` must
-   bring back step 4's values on the card (6 steps before ``injob_path`` was added; cut
-   to keep the script within its time). The checkpoint path launches none of the
+   async) over 2 steps of (a)'s state with in-place updates; ``restore_latest`` must
+   bring back step 2's values on the card (6 steps before ``injob_path`` was added, 4
+   before ``graft_path``; cut to keep the script within its time). The checkpoint path launches none of the
    median kernels; their counts are zeroed before it and printed.
 14. ``injob_path``: fault tolerance and the in-job restart on the card. Each scenario
    is a fresh process tree: the port's launcher (``python -m
@@ -360,6 +360,27 @@ printing one JSON line that carries the card's name and power limit:
    JSON lines are printed; no process this run started may hold the card at the end or
    be left behind; the phase within 150 s. Config 3's ``loop`` launches go on the
    ``kernels`` line.
+
+20. ``graft_path``: the two entry points of ``__graft_entry__.py`` on the card
+   (``tpu_resiliency_torch/__graft_entry__.py``). ``entry()``: the tiny transformer's
+   bf16 forward of tokens of zeros ``[2, 32]`` on the card, its logits within
+   ``GRAFT_LOGITS_RTOL`` (relative, on the norm) of the same forward of the same
+   weights on the CPU, and the forward of the weights rounded to float8_e5m2 (the
+   control) outside it. ``dryrun_multichip(2)``: two fresh interpreters in one gloo
+   group, both ranks on ``cuda:0`` (NCCL refuses two ranks on one card), run the
+   sharded train step over dp = 2 (the collectives it issued are printed),
+   ``MeshTelemetry`` over the group (rank 0 slowed 1.8x, one ``loop`` report per rank,
+   the mask equal to the truth), the local checkpoint of the sharded train state (bit
+   for bit, the placements restored) and the MoE pipeline over dp = 2. Gloo does not
+   carry DTensor's all-gather on CUDA tensors (``__graft_entry__.GLOO_CUDA_REFUSED``),
+   so the default splits (tp = 2, ep = 2) are refused there and run in the CPU tests;
+   the phase runs ``GRAFT_CARD_SPLIT`` and prints it. Then
+   the in-process restart and preemption examples on the card (two ranks on
+   ``cuda:0``) and the replication re-mirror on the host. Every ``dryrun_multichip
+   OK`` line must be printed. Printed: the phase's seconds, the split, each loss, the
+   logits' error and its control's; the ranks' ``loop`` launches go on the ``kernels``
+   line. This phase runs the ``inprocess_restart_train`` example that ``parallel_path``
+   (e) ran, so the whole run leaves (e) out.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
@@ -1658,7 +1679,7 @@ def restart_path(smoke, rows, names, main_mask, built_faults):
 
 
 CKPT_SAVES = (1, 2, 3)  # checkpoint_path (a): iterations, one optimizer step apart
-CKPT_CALLBACK_STEPS, CKPT_CALLBACK_EVERY = 4, 2  # checkpoint_path (c)
+CKPT_CALLBACK_STEPS, CKPT_CALLBACK_EVERY = 2, 2  # checkpoint_path (c) (4 before graft_path)
 CKPT_STATE_F32_BYTES = 6_022_695_936  # the 1/16 shard's parameters, mu and nu
 CKPT_SHARD_32_BYTES = 3_011_347_968  # each rank's state in checkpoint_path (b)
 #: checkpoint_path (b): one rank of a two-rank job on the one card, a fresh interpreter.
@@ -1817,7 +1838,7 @@ def checkpoint_path(smoke):
         del flat, views
         empty_host_cache()
 
-        # (a) Three pipelined saves one optimizer step apart.
+        # (a) Pipelined saves one optimizer step apart.
         mgr = LocalCheckpointManager(os.path.join(tmp, "pipelined"), rank=0, keep=3)
         torch.cuda.synchronize()
         mem_before = torch.cuda.memory_allocated()
@@ -1967,7 +1988,7 @@ def checkpoint_path(smoke):
         torch.cuda.empty_cache()
         empty_host_cache()
 
-        # (c) The callback: the local tier every 2 steps, async, 4 steps of in-place updates.
+        # (c) The callback: the local tier every 2 steps, async, over in-place updates.
         mgr = LocalCheckpointManager(os.path.join(tmp, "callback"), rank=0)
         cb = HierarchicalCheckpointCallback(local_manager=mgr, local_every=CKPT_CALLBACK_EVERY)
         step0 = state["step"]
@@ -3001,6 +3022,7 @@ PARALLEL_BUDGET_S = 150.0
 MESH_STEP_RTOL = 1e-5  # (g): the placed step's loss against the plain step's, relative
 PARALLEL_MOE_ARGS = ["--steps", "8", "--fault-step", "3"]  # (d), as the reference's test
 PARALLEL_MESH_STEPS = 150  # (f): the reference test's steps
+PARALLEL_PARTS = "agbcdf"  # the whole run's: graft_path's dry run runs (e)'s example
 
 
 def run_module(module: str, argv, timeout: float) -> tuple[int, str, str]:
@@ -4113,8 +4135,14 @@ def fleet_path(smoke, device="cuda", ranks=R, signals=S, window=W,
         t_unreachable = wait_for("fleet-a unreachable on /fleet/goodput", lambda: next(
             (t for t in probe.seen("fleet-a", "unreachable") if t >= t_kill), None))
 
+        def lease_job(path):  # None once fleetd unlinked it between the glob and the read
+            try:
+                return json.loads(path.read_text()).get("job")
+            except FileNotFoundError:
+                return None
+
         def lease_gone():
-            return not any(json.loads(p.read_text()).get("job") == "fleet-a"
+            return not any(lease_job(p) == "fleet-a"
                            for p in fleet.glob("*.json") if p.name != PORT_FILE_NAME) \
                 and time.time()
 
@@ -4502,6 +4530,79 @@ def harness_path(smoke, device="cuda", iters=HARNESS_ITERS, ckpt=None, restarts=
     if failed:
         raise AssertionError(f"harness_path: {failed}")
     return launches["loop"]
+
+
+GRAFT_BUDGET_S = 100.0  # the phase's share of the script's time
+GRAFT_RANKS = 2  # dryrun_multichip's ranks, both on cuda:0
+GRAFT_CARD_SPLIT = {"dp": GRAFT_RANKS}  # both programs' split on the card: all-reduces only
+# entry()'s bf16 logits on the card against the same forward on the CPU, relative to
+# their norm; the forward of float8_e5m2-rounded weights, the control, must lie outside
+# (tests/test_torch_graft_entry.py holds the CPU's against the reference's at 2e-2).
+GRAFT_LOGITS_RTOL = 2e-2
+GRAFT_LINES = ("dryrun_multichip OK: ", "dryrun_multichip OK (telemetry): ",
+               "dryrun_multichip OK (local-ckpt): ", "dryrun_multichip OK (inprocess-restart): ",
+               "dryrun_multichip OK (preemption-sync): ",
+               "dryrun_multichip OK (replication-remirror): ",
+               "dryrun_multichip OK (moe+pipeline): ")
+
+
+def graft_path(smoke, device="cuda", n=GRAFT_RANKS, budget_s=GRAFT_BUDGET_S):
+    """Phase 20: ``entry()`` and ``dryrun_multichip(n)`` on the card (see the module's
+    docstring). ``device="cpu"`` rehearses it on the host. Returns the ranks' ``loop``
+    launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tpu_resiliency_torch import __graft_entry__ as graft
+    from tpu_resiliency_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    fn, (model, tokens) = graft.entry(device)
+    cpu_model = tfm.Transformer(model.cfg, {k: p.detach().cpu()
+                                            for k, p in model.named_parameters()}, device="cpu")
+    with torch.no_grad():
+        got = fn(model, tokens).float().cpu()
+        want = fn(cpu_model, tokens.cpu())
+        control = e5m2_control(torch, cpu_model, lambda: fn(cpu_model, tokens.cpu()))
+    err = float((got - want).norm() / want.norm())
+    control_err = float((control - want).norm() / want.norm())
+    if tuple(got.shape) != (2, 32, model.cfg.vocab_size) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"entry(): logits {tuple(got.shape)}, finite {torch.isfinite(got).all()}")
+    if not err <= GRAFT_LOGITS_RTOL < control_err:
+        raise AssertionError(f"entry(): the logits on {device} {err:.3g} from the CPU's "
+                             f"(tolerance {GRAFT_LOGITS_RTOL}); the e5m2 control {control_err:.3g}")
+    entry_s = time.perf_counter() - t_phase
+    del model, cpu_model
+
+    split = GRAFT_CARD_SPLIT if device == "cuda" else None
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = graft.dryrun_multichip(n, device=None if device == "cuda" else device,
+                                     split=split, moe_split=split)
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("dryrun_multichip")]
+    missing = [want for want in GRAFT_LINES if not any(ln.startswith(want) for ln in lines)]
+    if missing:
+        raise AssertionError(f"dryrun_multichip({n}) printed no {missing}:\n{out.getvalue()}")
+    if device == "cuda" and not (res["telemetry"]["kernel_mode"] == "loop"
+                                 and res["loop_launches"] >= n):
+        raise AssertionError(f"the dry run's telemetry round launched no loop kernel: {res}")
+    strays = reap_strays(timeout=30.0)  # the examples' monitor daemons leave with their job
+    if strays:
+        raise AssertionError(f"the dry run left {len(strays)} processes behind: {strays}")
+    seconds = time.perf_counter() - t_phase
+    smoke.emit("graft_path", seconds=seconds, budget_s=budget_s,
+               within_budget=seconds <= budget_s, entry_seconds=entry_s,
+               entry={"logits_rel_err": err, "control_rel_err": control_err,
+                      "rtol": GRAFT_LOGITS_RTOL, "device": str(tokens.device)},
+               ranks=n, split=res["split"], mesh=res["mesh"], loss=res["loss"],
+               collectives=res["collectives"], moe_split=res["moe_split"],
+               moe_mesh=res["moe_mesh"], moe_loss=res["moe_loss"],
+               moe_collectives=res["moe_collectives"],
+               telemetry=res["telemetry"], local_ckpt=res["local_ckpt"],
+               part_seconds=res["seconds"], lines=lines, loop_launches=res["loop_launches"])
+    return res["loop_launches"]
 
 
 def main() -> int:
@@ -4997,7 +5098,7 @@ def main() -> int:
 
     # 16. parallel path: the mesh telemetry workers' loop launches --------------------
     torch.cuda.empty_cache()
-    path_launches["loop"] += parallel_path(smoke)
+    path_launches["loop"] += parallel_path(smoke, parts=PARALLEL_PARTS)
 
     # 17. observe path: the detect, decide and act loop; its workers' loop launches ----
     torch.cuda.empty_cache()
@@ -5010,6 +5111,10 @@ def main() -> int:
     # 19. harness path: the reference's measuring harnesses; config 3's loop launches -----
     torch.cuda.empty_cache()
     path_launches["loop"] += harness_path(smoke)
+
+    # 20. graft path: entry() and the dry run; its telemetry launches ---------------
+    torch.cuda.empty_cache()
+    path_launches["loop"] += graft_path(smoke)
 
     kernels = []
     for mode in sk.MODES:

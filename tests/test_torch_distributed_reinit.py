@@ -31,17 +31,10 @@ import pytest
 import torch
 
 from tests.inprocess import test_abort_reinit as reference
+from tests.torch_model_util import held_port
 from tpu_resiliency_torch.platform import distributed
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 CHILD = textwrap.dedent(
@@ -108,8 +101,8 @@ CHILD = textwrap.dedent(
 
 
 def _run(fault: str, timeout: float = 120.0):
-    store_port = free_port()
-    group_ports = ",".join(str(free_port()) for _ in range(4))
+    store_port = held_port()
+    group_ports = ",".join(str(held_port()) for _ in range(4))
     env = dict(os.environ, TPU_RESILIENCY_LOG_LEVEL="WARNING")
     env["PYTHONPATH"] = REPO_ROOT + os.pathsep + env.get("PYTHONPATH", "")
     procs = [
@@ -193,7 +186,7 @@ def test_shutdown_for_restart_tears_down_and_never_raises(monkeypatch):
     groups = []
     try:
         for _ in range(2):
-            distributed.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, device="cpu")
+            distributed.initialize(f"tcp://127.0.0.1:{held_port()}", 1, 0, device="cpu")
             groups.append(dist.group.WORLD)
             x = torch.ones(2)
             dist.all_reduce(x)
@@ -203,7 +196,7 @@ def test_shutdown_for_restart_tears_down_and_never_raises(monkeypatch):
             assert distributed.last_abort_method is None  # no NCCL group on the CPU
         assert groups[1] is not groups[0]
 
-        distributed.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, device="cpu")
+        distributed.initialize(f"tcp://127.0.0.1:{held_port()}", 1, 0, device="cpu")
 
         def broken(*a, **k):
             raise RuntimeError("teardown failed")
@@ -220,14 +213,14 @@ def test_recoverable_initialize_sets_the_nccl_error_handling(monkeypatch):
     import torch.distributed as dist
 
     monkeypatch.setenv("TORCH_NCCL_ASYNC_ERROR_HANDLING", "3")
-    distributed.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, device="cpu")
+    distributed.initialize(f"tcp://127.0.0.1:{held_port()}", 1, 0, device="cpu")
     try:
         assert os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] == \
             distributed.RECOVERABLE_NCCL_ERROR_HANDLING
     finally:
         dist.destroy_process_group()
     monkeypatch.setenv("TORCH_NCCL_ASYNC_ERROR_HANDLING", "3")
-    distributed.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, device="cpu",
+    distributed.initialize(f"tcp://127.0.0.1:{held_port()}", 1, 0, device="cpu",
                            recoverable=False)
     try:
         assert os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] == "3"
@@ -239,7 +232,7 @@ def test_initialize_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("the card is here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        distributed.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+        distributed.initialize(f"tcp://127.0.0.1:{held_port()}", 1, 0)
     assert not distributed.client_active()
 
 

@@ -12,13 +12,13 @@ takes its group path over 2 processes with a ``CoordStore``, and no per-rank
 summary key may reach the store (the assertion of
 ``tests/telemetry/test_mesh_multiprocess.py``).
 
-Children use a free localhost port, and each is joined with its own timeout of
-120 s, then killed, and the test fails.
+Children meet on a localhost port that this process holds for them
+(``platform/distributed.py`` ``reserve_port``) until they are done; each is joined with
+its own timeout of 120 s, then killed, and the test fails.
 """
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -31,6 +31,7 @@ import pytest
 from tests.test_torch_scoring import TOL
 from tpu_resiliency.platform.store import KVServer
 from tpu_resiliency.telemetry import scoring as ref_scoring
+from tpu_resiliency_torch.platform.distributed import reserve_port
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 CHILD_TIMEOUT_S = 120
@@ -186,12 +187,6 @@ DETECTOR_CHILD = textwrap.dedent(
 exec(GEN)  # windows, summaries, ring_rows: the children's data, here for the reference
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_children(script: Path, argv_of, world: int, cwd: Path):
     """Start ``world`` children, join each with its own timeout, kill on expiry.
     Returns their stdouts; fails if any timed out or exited non-zero."""
@@ -230,8 +225,12 @@ def group_results(request, tmp_path_factory):
     tmp = tmp_path_factory.mktemp(f"group{world}")
     script = tmp / "child.py"
     script.write_text(CHILD)
-    port = free_port()
-    run_children(script, lambda r: (r, world, port, tmp / f"rank{r}.npz", R, S, W), world, tmp)
+    port, held = reserve_port()
+    try:
+        run_children(script, lambda r: (r, world, port, tmp / f"rank{r}.npz", R, S, W), world,
+                     tmp)
+    finally:
+        held.close()
     return world, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
 
 
@@ -311,10 +310,11 @@ def test_detector_group_path_sends_no_summary_through_the_store(tmp_path):
     script = tmp_path / "detector_child.py"
     script.write_text(DETECTOR_CHILD)
     kv = KVServer(host="127.0.0.1", port=0)
-    port = free_port()
+    port, held = reserve_port()
     try:
         outs = run_children(script, lambda r: (r, kv.port, port), 2, tmp_path)
     finally:
+        held.close()
         kv.close()
     results = {}
     for out in outs:

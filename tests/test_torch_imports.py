@@ -185,8 +185,20 @@ FLEET_MODULES = (
     "tpu_resiliency_torch.tools.store_info",
 )
 
+#: The repo-root programs ported last (``__graft_entry__`` and the scripts that ran on the
+#: reference's modules), each imported by the subprocess check.
+ROOT_MODULES = (
+    "tpu_resiliency_torch.__graft_entry__",
+    "tpu_resiliency_torch.scripts.bench_reshard",
+    "tpu_resiliency_torch.scripts.chaos_soak",
+    "tpu_resiliency_torch.scripts.bench_store",
+    "tpu_resiliency_torch.scripts.bench_replication",
+    "tpu_resiliency_torch.scripts.bench_fleet",
+    "tpu_resiliency_torch.scripts.bench_ckpt_io",
+)
+
 ALL_SLICES = (SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES + FT_MODULES + MODEL_MODULES
-              + PARALLEL_MODULES + OBSERVE_MODULES + FLEET_MODULES)
+              + PARALLEL_MODULES + OBSERVE_MODULES + FLEET_MODULES + ROOT_MODULES)
 
 
 def test_importing_every_module_loads_no_jax():

@@ -20,7 +20,6 @@ scenario must give the outcome the reference's gives in the same run.
 import contextlib
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -38,17 +37,10 @@ from tpu_resiliency_torch.inprocess.tools.inject_fault import (
     inject_fault,
 )
 from tests.inprocess import test_device_faults as reference
+from tests.torch_model_util import held_port
 from tpu_resiliency_torch.platform import device as port_device
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def run_children(child_src: str, argvs, timeout: float = 120.0):
@@ -207,8 +199,8 @@ def test_device_error_excludes_rank_via_health_check():
     finds the runtime dead → rank excluded (HealthCheckError) after one attempt, the
     outcome of the reference's child in the same run."""
     ref = beside(reference._run_children, reference.ERROR_LADDER_CHILD, 1,
-                 lambda r: [free_port()])
-    ((rc, out, err),) = run_children(ERROR_LADDER_CHILD, [[free_port()]])
+                 lambda r: [held_port()])
+    ((rc, out, err),) = run_children(ERROR_LADDER_CHILD, [[held_port()]])
     ref_rc, ref_out, ref_err = ref()[0]
     want = result(ref_out, "LADDER-RESULT")
     assert want is not None, f"no reference result (rc {ref_rc}):\n{ref_out}\n{ref_err[-3000:]}"
@@ -282,7 +274,7 @@ def test_device_hang_killed_by_monitor_hard_timeout():
     the whole suite on six workers tipped the reference's pair run alone. So the
     reference's pair runs first and the port's after it, not beside it, each with its
     processes scheduled ahead of the suite's (niceness -10, where the host allows)."""
-    ref_port, port = free_port(), free_port()
+    ref_port, port = held_port(), held_port()
     with scheduled_first():
         refs = reference._run_children(reference.HANG_CHILD, 2, lambda r: [r, ref_port],
                                        timeout=120.0)

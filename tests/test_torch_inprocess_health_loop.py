@@ -16,7 +16,8 @@ import time
 
 from tests.inprocess import test_health_loop as reference
 from tests.test_torch_inprocess_faults import scheduled_first
-from tests.test_torch_inprocess_wrap import fast_wrapper, free_port, pkg
+from tests.test_torch_inprocess_wrap import fast_wrapper, pkg
+from tests.torch_model_util import held_port
 
 STEPS_PER_ROUND = 6
 MAX_REPORT_ROUNDS = 8
@@ -91,7 +92,7 @@ def _health_loop_body(rank, world, port, q):
 def _run_world(ctx, body, world):
     """Start ``world`` ranks of ``body`` on a fresh store port and collect each rank's
     result, the ranks joined (or ended) before it returns."""
-    port, q = free_port(), ctx.Queue()
+    port, q = held_port(), ctx.Queue()
     procs = [ctx.Process(target=body, args=(r, world, port, q)) for r in range(world)]
     for p in procs:
         p.start()

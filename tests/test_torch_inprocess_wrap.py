@@ -15,20 +15,13 @@ import importlib
 import multiprocessing as mp
 import os
 import queue
-import socket
 import threading
 import time
 import types
 
+from tests.torch_model_util import held_port
+
 REFERENCE, PORT = ROOTS = ("tpu_resiliency", "tpu_resiliency_torch")
-
-
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def pkg(root: str) -> types.SimpleNamespace:
@@ -65,7 +58,7 @@ def run_worlds(world, body, timeout=90.0, after_start=None, env=None, roots=ROOT
     ctx = mp.get_context("fork")
     worlds = {}
     for root in roots:
-        port, q, procs = free_port(), ctx.Queue(), []
+        port, q, procs = held_port(), ctx.Queue(), []
         for rank in range(world):
             def child(rank=rank, root=root, port=port, q=q):
                 os.environ.update(env(root) if env else {})
@@ -399,7 +392,7 @@ def test_detector_workload_restarts_in_process():
         def train(call: CallWrapper):
             it = call.iteration
             assert not (profiler_running() or Detector.initialized or distributed.client_active())
-            distributed.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, device="cpu")
+            distributed.initialize(f"tcp://127.0.0.1:{held_port()}", 1, 0, device="cpu")
             seen["groups"][it] = dist.group.WORLD
             t = torch.full((4,), 3.0)
             dist.all_reduce(t)

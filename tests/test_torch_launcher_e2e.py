@@ -18,7 +18,6 @@ in round 0 is killed by its monitor and round 1 completes.
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -27,16 +26,11 @@ import pytest
 import torch
 
 from tests.torch_port_tests import REPO
+from tests.torch_model_util import held_port
 
 PACKAGES = ("tpu_resiliency", "tpu_resiliency_torch")
 SOURCES = ("launcher", "rendezvous", "watchdog")
 FAST = ["--rdzv-last-call", "0.2", "--monitor-interval", "0.1"]
-
-
-def free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def launch(pkg, args, worker, tmp_path, timeout=180.0):
@@ -86,7 +80,7 @@ def ok_two_workers(tmp_path):
             """)
 
     runs = both(tmp_path, ["--nproc-per-node", "2", "--rdzv-endpoint",
-                           f"127.0.0.1:{free_port()}", "--no-ft-monitors", *FAST], worker)
+                           f"127.0.0.1:{held_port()}", "--no-ft-monitors", *FAST], worker)
     assert runs[1][:2] == (0, [0])
     for pkg in PACKAGES:
         assert [(tmp_path / f"out_{r}_{pkg}.txt").read_text() for r in (0, 1)] == ["2", "2"]
@@ -104,7 +98,7 @@ def restart_until_success(tmp_path):
             """)
 
     runs = both(tmp_path, ["--nproc-per-node", "2", "--rdzv-endpoint",
-                           f"127.0.0.1:{free_port()}", "--max-restarts", "4", "--no-ft-monitors",
+                           f"127.0.0.1:{held_port()}", "--max-restarts", "4", "--no-ft-monitors",
                            *FAST], worker)
     assert runs[1][:2] == (0, [0, 1, 2])
     assert all("requesting restart round" in run[4] for run in runs)
@@ -115,7 +109,7 @@ def budget_exhausted(tmp_path):
         return script(tmp_path, pkg, "dead", "raise RuntimeError('always broken')")
 
     runs = both(tmp_path, ["--nproc-per-node", "1", "--rdzv-endpoint",
-                           f"127.0.0.1:{free_port()}", "--max-restarts", "1", "--no-ft-monitors",
+                           f"127.0.0.1:{held_port()}", "--max-restarts", "1", "--no-ft-monitors",
                            *FAST], worker)
     assert runs[1][:2] == (1, [0, 1])
     assert all("restart budget" in run[4] and "RuntimeError" in run[4] for run in runs)
@@ -140,7 +134,7 @@ def hang_detected_by_monitor(tmp_path):
             """)
 
     runs = both(tmp_path, ["--nproc-per-node", "1", "--rdzv-endpoint",
-                           f"127.0.0.1:{free_port()}", "--max-restarts", "2", *FAST,
+                           f"127.0.0.1:{held_port()}", "--max-restarts", "2", *FAST,
                            "--ft-param-initial_rank_heartbeat_timeout", "3",
                            "--ft-param-rank_heartbeat_timeout", "3",
                            "--ft-param-workload_check_interval", "0.5"], worker)
@@ -161,7 +155,7 @@ def control_shutdown(tmp_path):
             """)
 
     runs = both(tmp_path, ["--nproc-per-node", "1", "--rdzv-endpoint",
-                           f"127.0.0.1:{free_port()}", "--max-restarts", "3", *FAST], worker)
+                           f"127.0.0.1:{held_port()}", "--max-restarts", "3", *FAST], worker)
     assert runs[1][:2] == (1, [0])
     assert all("shut down" in run[4] for run in runs)
 

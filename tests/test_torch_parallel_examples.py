@@ -18,7 +18,6 @@ That each runs on the card by default is held in ``tests/test_torch_imports.py``
 
 import ast
 import os
-import socket
 import subprocess
 import sys
 
@@ -29,13 +28,8 @@ import torch
 
 from tests.test_torch_inprocess_faults import scheduled_first
 from tests.torch_port_tests import REPO
+from tests.torch_model_util import held_port
 from tpu_resiliency_torch.examples import inprocess_restart_train as port_inproc
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _env():
@@ -130,7 +124,7 @@ def test_mesh_telemetry_example_under_launcher(tmp_path):
     injected slow rank was flagged."""
     env = dict(_env(), TPU_RESILIENCY_LOG_LEVEL="INFO")
     r = _run(["-m", "tpu_resiliency_torch.launcher.launch", "--nproc-per-node", "2",
-              "--no-ft-monitors", "--rdzv-endpoint", f"127.0.0.1:{free_port()}",
+              "--no-ft-monitors", "--rdzv-endpoint", f"127.0.0.1:{held_port()}",
               "--rdzv-last-call", "0.2", "--monitor-interval", "0.1",
               "--run-dir", str(tmp_path / "run"),
               str(REPO / "tpu_resiliency_torch" / "examples" / "mesh_telemetry_training.py"),

@@ -4,7 +4,9 @@ name (``RENAMED``), or stands on the explicit not-yet-ported list below. The lis
 shrank as slices landed and is empty now: every module has its counterpart.
 
 The walk lists modules with ``pkgutil`` from the package directories, importing
-nothing.
+nothing. The repo-root programs that call JAX (by an import, or through a reference
+module that imports it) are ported under ``tpu_resiliency_torch/`` at their paths, or
+listed with a reason.
 """
 
 import pkgutil
@@ -211,21 +213,69 @@ ROOT_PORTS = (
     "scripts/bench_configs.py",
     "scripts/bench_restart.py",
     "scripts/bench_ckpt_save.py",
+    "__graft_entry__.py",
+    "scripts/bench_reshard.py",
+    "scripts/chaos_soak.py",
+    "scripts/bench_store.py",
+    "scripts/bench_replication.py",
+    "scripts/bench_fleet.py",
+    "scripts/bench_ckpt_io.py",
 )
 
-#: The repo-root files that import JAX and have no counterpart in the port yet, each
+#: The repo-root files that call JAX and have no counterpart in the port yet, each
 #: with its reason.
 ROOT_NOT_YET_PORTED = {
     "bench.py": "config 4's benchmark; the port's is a benchmark of its own, to come "
                 "(ROADMAP Queue 1 item 1)",
-    "__graft_entry__.py": "the multichip dry run over 8 virtual CPU devices; queued as a "
-                          "gloo dry run over n processes (ROADMAP Queue 1)",
     "scripts/bench_pallas_sweep.py": "answered by ops/kernel_sweep.py, the port's sweep of "
                                      "its CUDA kernels",
 }
 
 #: A line of a file that imports JAX (a worker script inside a string counts).
 IMPORTS_JAX = re.compile(r"^\s*(import jax\b|from jax\b)", re.M)
+
+#: The reference modules that import JAX when they are loaded: all of ``telemetry/``
+#: (its ``__init__`` imports ``scoring``), ``ops/``, ``models/`` and ``integrations/``,
+#: ``parallel/pipeline.py``, ``parallel/ring_attention.py`` and ``tools/alerts_cli.py``.
+#: A subprocess that imports each module alone finds the same 28;
+#: :func:`imports_jax_at_load` derives them from the sources.
+JAX_AT_LOAD = (
+    "tpu_resiliency.integrations",
+    "tpu_resiliency.integrations.checkpoint_callback",
+    "tpu_resiliency.integrations.ft_callbacks",
+    "tpu_resiliency.integrations.loop",
+    "tpu_resiliency.integrations.orbax_adapter",
+    "tpu_resiliency.integrations.preemption",
+    "tpu_resiliency.integrations.straggler_callback",
+    "tpu_resiliency.models",
+    "tpu_resiliency.models.moe",
+    "tpu_resiliency.models.transformer",
+    "tpu_resiliency.ops",
+    "tpu_resiliency.ops.scoring_pallas",
+    "tpu_resiliency.parallel.pipeline",
+    "tpu_resiliency.parallel.ring_attention",
+    "tpu_resiliency.telemetry",
+    "tpu_resiliency.telemetry.detector",
+    "tpu_resiliency.telemetry.device_profiler",
+    "tpu_resiliency.telemetry.interval_tracker",
+    "tpu_resiliency.telemetry.name_registry",
+    "tpu_resiliency.telemetry.policy",
+    "tpu_resiliency.telemetry.remediation",
+    "tpu_resiliency.telemetry.reporting",
+    "tpu_resiliency.telemetry.ring_buffer",
+    "tpu_resiliency.telemetry.scoring",
+    "tpu_resiliency.telemetry.sharded",
+    "tpu_resiliency.telemetry.statistics",
+    "tpu_resiliency.telemetry.watchtower",
+    "tpu_resiliency.tools.alerts_cli",
+)
+
+#: A reference module named in a file: an import statement (a worker script inside a
+#: string counts), or a quoted dotted name (``import_module``, ``-m`` command lines).
+FROM_IMPORT = re.compile(r"^\s*from\s+(tpu_resiliency(?:\.\w+)*)\s+import\s+(\([^)]*\)|[^\n]*)",
+                         re.M)
+PLAIN_IMPORT = re.compile(r"^\s*import\s+(tpu_resiliency(?:\.\w+)*)", re.M)
+QUOTED_MODULE = re.compile(r"[\"'](tpu_resiliency(?:\.\w+)+)[\"']")
 
 
 def _answered(package: str) -> dict[str, str]:
@@ -348,10 +398,110 @@ def root_files() -> list[str]:
     return sorted(p.relative_to(repo).as_posix() for p in paths if p.is_file())
 
 
+def _package_of(module: str) -> str:
+    return module if is_package(module) else module.rsplit(".", 1)[0]
+
+
+def is_package(module: str) -> bool:
+    return REFERENCE_DIR.joinpath(*module.split(".")[1:], "__init__.py").is_file()
+
+
+def module_source(module: str) -> Path:
+    p = REFERENCE_DIR.joinpath(*module.split(".")[1:])
+    return p / "__init__.py" if is_package(module) else p.with_suffix(".py")
+
+
+def _with_parents(name: str) -> set[str]:
+    """Importing ``a.b.c`` loads ``a`` and ``a.b`` too."""
+    parts = name.split(".")
+    return {".".join(parts[:i]) for i in range(1, len(parts) + 1)}
+
+
+def load_time_imports(module: str) -> set[str]:
+    """The names ``module`` imports when it is loaded: its module-level imports, in
+    class bodies and in ``if``/``try``/``with`` blocks too, but not in functions nor
+    under ``if TYPE_CHECKING``; ``from a import b`` names ``a`` and ``a.b``."""
+    import ast
+
+    out: set[str] = set()
+    package = _package_of(module)
+
+    def visit(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(node, ast.If) and "TYPE_CHECKING" in ast.unparse(node.test):
+                visit(node.orelse)
+                continue
+            if isinstance(node, ast.Import):
+                out.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                base = node.module or ""
+                if node.level:
+                    parts = package.split(".")
+                    base = ".".join(parts[:len(parts) - node.level + 1] + ([base] if base else []))
+                out.add(base)
+                out.update(f"{base}.{a.name}" for a in node.names)
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                if isinstance(node, (ast.ClassDef, ast.If, ast.Try, ast.With, ast.For,
+                                     ast.While, ast.ExceptHandler)):
+                    visit(getattr(node, field, []))
+
+    visit(ast.parse(module_source(module).read_text()).body)
+    return out
+
+
+def imports_jax_at_load() -> set[str]:
+    """The reference modules whose loading imports JAX: directly, or through a
+    reference module (or a parent package) whose loading does."""
+    modules = ["tpu_resiliency", *reference_modules()]
+    loads = {m: set().union(*map(_with_parents, load_time_imports(m))) | (
+        _with_parents(m) - {m}) for m in modules}
+    found: set[str] = set()
+    while True:
+        more = {m for m in modules if m not in found and (
+            any(n.split(".")[0] in ("jax", "jaxlib") for n in loads[m]) or loads[m] & found)}
+        if not more:
+            return found
+        found |= more
+
+
+def reference_imports(text: str) -> set[str]:
+    """The reference modules a file's text imports or names (and their packages)."""
+    modules = set(reference_modules()) | {"tpu_resiliency"}
+    named = set(PLAIN_IMPORT.findall(text)) | set(QUOTED_MODULE.findall(text))
+    for base, names in FROM_IMPORT.findall(text):
+        named.add(base)
+        for item in names.strip("()").replace("\n", ",").split(","):
+            name = item.split("#")[0].split(" as ")[0].strip()
+            if name:
+                named.add(f"{base}.{name}")
+    return {p for n in named for p in _with_parents(n)} & modules
+
+
+def calls_jax(text: str) -> bool:
+    """A file calls JAX when it imports JAX, or imports a reference module that imports
+    JAX at load time (:data:`JAX_AT_LOAD`) or whose source imports it at run time."""
+    runtime = {m for m in reference_modules() if IMPORTS_JAX.search(module_source(m).read_text())}
+    return bool(IMPORTS_JAX.search(text) or reference_imports(text) & (set(JAX_AT_LOAD) | runtime))
+
+
+def test_jax_at_load_is_what_the_sources_import():
+    assert len(JAX_AT_LOAD) == len(set(JAX_AT_LOAD)) == 28
+    assert imports_jax_at_load() == set(JAX_AT_LOAD)
+
+
 def test_every_root_file_that_imports_jax_is_ported_or_listed():
+    """Calling JAX through the package counts: ``scripts/bench_reshard.py`` and
+    ``scripts/chaos_soak.py`` import no ``jax`` themselves."""
     repo = REFERENCE_DIR.parent
-    jax_files = [f for f in root_files() if IMPORTS_JAX.search((repo / f).read_text())]
+    jax_files = [f for f in root_files() if calls_jax((repo / f).read_text())]
     assert "bench.py" in jax_files and "scripts/bench_configs.py" in jax_files
+    assert "scripts/bench_reshard.py" in jax_files and "scripts/chaos_soak.py" in jax_files
+    assert not IMPORTS_JAX.search((repo / "scripts/chaos_soak.py").read_text())
+    for free in ("scripts/bench_store.py", "scripts/bench_replication.py",
+                 "scripts/bench_fleet.py", "scripts/bench_ckpt_io.py"):
+        assert free not in jax_files, free
     neither = [f for f in jax_files if f not in ROOT_PORTS and f not in ROOT_NOT_YET_PORTED]
     assert not neither, f"import JAX, neither ported nor listed with a reason: {neither}"
     assert all(ROOT_NOT_YET_PORTED.values())

@@ -20,7 +20,7 @@ import threading
 import time
 
 from tests.torch_port_tests import REPO, port_tests
-from tests.torch_model_util import free_port
+from tpu_resiliency_torch.platform.distributed import reserve_port
 
 port_tests(
     "tests/integrations/test_preemption.py", globals(),
@@ -73,7 +73,7 @@ CHILD = textwrap.dedent(
 
 
 def test_one_rank_notice_synchronizes_every_rank_save_over_gloo(tmp_path):
-    port = free_port()
+    port, held = reserve_port()  # held until both ranks are done
     script = tmp_path / "child.py"
     script.write_text(CHILD)
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -118,6 +118,7 @@ def test_one_rank_notice_synchronizes_every_rank_save_over_gloo(tmp_path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
+        held.close()
 
     # Both ranks saved the SAME step and stopped there — including rank 0, which
     # never received a signal — before the 400-step horizon.

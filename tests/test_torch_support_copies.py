@@ -5,8 +5,9 @@ ports of their own, the fault-tolerance slice: the watchdog, the launcher, the
 FT callbacks, ``platform/ipc.py``, ``compile_cache.py`` and ``utils/stackdump.py``, and
 the observability slice: the event stream, the metrics family, remediation, the
 autoscale controller, the watchtower, the incident engine, the telemetry server and
-their CLI tools, and the last slice: fleet federation, the offline tools and the C
-sources of the host extensions)
+their CLI tools, the last slice: fleet federation, the offline tools and the C
+sources of the host extensions, and the repo-root scripts that ran on the reference's
+modules, ``scripts/bench_*.py`` and ``chaos_soak.py``, under ``tpu_resiliency_torch/scripts/``)
 must equal the reference's text with its imports rewritten from ``tpu_resiliency.``
 to ``tpu_resiliency_torch.``, except for the edits listed here, each with its reason.
 An edit to a copy has to be added to this list, with why.
@@ -371,13 +372,31 @@ CUDA_RUNTIME_CHECK = '''class CudaRuntimeCheck(HealthCheck):
 #: Per copied module (path under both packages; the host extensions' C sources under
 #: the repo's ``native/`` and the port's): ``(reference text, port text, why)`` after the
 #: import rewrite. Each reference text (or pattern) must occur exactly once.
+#: The store client's persistent call, and the port's: the socket is dropped when an
+#: exception other than a transport error interrupts a call.
+STORE_CALL_OLD = '            try:\n                framing.send_obj(self._sock, req)\n                resp = framing.recv_obj(self._sock)\n            except (ConnectionError, EOFError, OSError) as e:\n                try:\n                    self._sock.close()\n                except OSError:\n                    pass\n                self._sock = None\n                raise StoreTransportError(f"store transport failure: {e!r}") from e\n        return self._parse(req, resp)\n'
+STORE_CALL_NEW = '            try:\n                framing.send_obj(self._sock, req)\n                resp = framing.recv_obj(self._sock)\n            except (ConnectionError, EOFError, OSError) as e:\n                try:\n                    self._sock.close()\n                except OSError:\n                    pass\n                self._sock = None\n                raise StoreTransportError(f"store transport failure: {e!r}") from e\n            except BaseException:\n                # An exception raised into this thread mid-call (the in-process\n                # Wrapper\'s restart signal, a KeyboardInterrupt) leaves this call\'s\n                # reply unread on the socket, where the next call would read it as\n                # its own: drop the socket.\n                try:\n                    self._sock.close()\n                except OSError:\n                    pass\n                self._sock = None\n                raise\n        return self._parse(req, resp)\n'
+
+#: Reasons shared by the edits of the repo-root scripts' copies.
+SCRIPT_USAGE = "the port's script runs as a module of the package"
+SCRIPT_ROOT = "the copy lies a directory deeper: the repo root is three levels up"
+SCRIPT_OUT = ("result files go to the checkout's build/ (scripts/__init__.py DEFAULT_OUT_DIR), "
+              "never over the reference's committed BENCH_*.json")
+FLEET_JOB = ("each job's workers train the port's examples/resilient_training.py on --device, "
+             "paced and faulting as the reference's worker script")
+
 COPIES = {
     "utils/location.py": (),
     "utils/tracing.py": (),
     "utils/opstats.py": (),
     "utils/flight_recorder.py": (),
     "platform/chaos.py": (),
-    "platform/store.py": (),
+    "platform/store.py": (
+        (STORE_CALL_OLD, STORE_CALL_NEW,
+         "an exception raised into the thread mid-call (the Wrapper's restart signal) left "
+         "the reply unread on the persistent socket, and the next call read it as its own: "
+         "a rank polling the store read job_done true and stood down mid-restart"),
+    ),
     "platform/shardstore.py": (),
     "platform/framing.py": (),
     "watchdog/state_machine.py": (),
@@ -812,11 +831,215 @@ def _entry_names(path: str) -> list[str]:
         os.environ.update(compile_cache.compiler_cache_env(cache_dir))""",
          "torch.compile's cache variables"),
     ),
+    # -- the repo-root scripts that run on the port's modules
+    "scripts/bench_ckpt_io.py": (
+        ("    python scripts/bench_ckpt_io.py",
+         "    python -m tpu_resiliency_torch.scripts.bench_ckpt_io", SCRIPT_USAGE),
+    ),
+    "scripts/bench_store.py": (
+        ("""    python scripts/bench_store.py [--ops N] [--out BENCH_store_baseline.json]
+    python scripts/bench_store.py --ranks 4096 --shards 4   # scale storm
+    python scripts/bench_store.py --smoke     # CI: tiny storm, sanity asserts
+    python scripts/bench_store.py --smoke --ranks 128 --shards 2  # + scale leg""",
+         """    python -m tpu_resiliency_torch.scripts.bench_store [--ops N] [--out BENCH_store_baseline.json]
+    python -m tpu_resiliency_torch.scripts.bench_store --ranks 4096 --shards 4   # scale storm
+    python -m tpu_resiliency_torch.scripts.bench_store --smoke     # CI: tiny storm, sanity asserts
+    python -m tpu_resiliency_torch.scripts.bench_store --smoke --ranks 128 --shards 2  # + scale leg""",
+         SCRIPT_USAGE),
+        ("""REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO_ROOT not in sys.path:
+    sys.path.insert(0, REPO_ROOT)
+""", """REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if REPO_ROOT not in sys.path:
+    sys.path.insert(0, REPO_ROOT)
+
+from tpu_resiliency_torch.scripts import DEFAULT_OUT_DIR  # noqa: E402
+""", SCRIPT_ROOT + "; " + SCRIPT_OUT),
+        ('    base_path = os.path.join(REPO_ROOT, "BENCH_store_baseline.json")',
+         '    base_path = os.path.join(DEFAULT_OUT_DIR, "BENCH_store_baseline.json")',
+         "the port's own baseline curve, where --out writes it"),
+        ('        "--out", default=os.path.join(REPO_ROOT, "BENCH_store_baseline.json")',
+         '        "--out", default=os.path.join(DEFAULT_OUT_DIR, "BENCH_store_baseline.json")',
+         SCRIPT_OUT),
+        ('        default=os.path.join(REPO_ROOT, "BENCH_store_scale.json"),',
+         '        default=os.path.join(DEFAULT_OUT_DIR, "BENCH_store_scale.json"),', SCRIPT_OUT),
+        ("""    args = ap.parse_args(argv)
+
+    if args.smoke:""", """    args = ap.parse_args(argv)
+    os.makedirs(DEFAULT_OUT_DIR, exist_ok=True)
+
+    if args.smoke:""", "build/ may not exist yet"),
+    ),
+    "scripts/bench_replication.py": (
+        ("""    python scripts/bench_replication.py [--mb 256] [--world 3] [--rounds 3] \\
+        [--dirty-frac 0.05] [--out BENCH_replication.json]
+    python scripts/bench_replication.py --smoke   # tiny run, assert the gates""",
+         """    python -m tpu_resiliency_torch.scripts.bench_replication [--mb 256] [--world 3] \\
+        [--rounds 3] [--dirty-frac 0.05] [--out BENCH_replication.json]
+    python -m tpu_resiliency_torch.scripts.bench_replication --smoke   # tiny run, assert the gates""",
+         SCRIPT_USAGE),
+        ("sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))\n",
+         "sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(\n"
+         "    os.path.abspath(__file__)))))\n", SCRIPT_ROOT),
+    ),
+    "scripts/bench_fleet.py": (
+        ("""The fleet acceptance story, measured: N concurrent 2-rank chaos jobs (each a
+real `tpu-ft-launcher --standalone --fleet-dir ...` run on loopback whose
+rank 0 faults once in round 0, so every job exercises a restart while being
+scraped) registered in one fleet dir, with a fleetd aggregator scraping them.""",
+         """The fleet acceptance story, measured: N concurrent 2-rank chaos jobs (each a
+real `tpu-ft-launcher --standalone --fleet-dir ...` run on loopback whose
+rank 0 faults once in round 0, so every job exercises a restart while being
+scraped) registered in one fleet dir, with a fleetd aggregator scraping them.
+Each job's workers train ``examples/resilient_training.py`` (a step every
+``STEP_S``) on ``--device``: the card by default, ``cpu`` for the host.""",
+         FLEET_JOB),
+        ("""    python scripts/bench_fleet.py [--sizes 2,4,8] [--scrapes 20] [--out BENCH_fleet.json]
+    python scripts/bench_fleet.py --smoke""",
+         """    python -m tpu_resiliency_torch.scripts.bench_fleet [--sizes 2,4,8] [--scrapes 20] \\
+        [--out BENCH_fleet.json] [--device cpu]
+    python -m tpu_resiliency_torch.scripts.bench_fleet --smoke""", SCRIPT_USAGE),
+        ("REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))\n",
+         "REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))\n",
+         SCRIPT_ROOT),
+        (re.compile(r'WORKER = """\\\n.*?\n"""\n', re.S),
+         """#: The jobs' workers: ``examples/resilient_training.py`` at a small width, paced
+#: as the reference's worker is (a step every ``STEP_S``), crashing once in round 0
+#: on rank 0 at ``FAULT_STEP`` and stopping once the run's stop file appears, or at
+#: the latest after ``STEPS``, the reference worker's 180 s deadline.
+STEP_S = 0.25
+FAULT_STEP = 5
+STEPS = FAULT_STEP + int(180 / STEP_S)
+WORKER_WIDTHS = ("--ranks", "64", "--signals", "8", "--window", "8", "--report-every", "20",
+                 "--ckpt-every", "20")
+""", FLEET_JOB),
+        ("def launch_job(workdir: str, fleet_dir: str, idx: int) -> subprocess.Popen:",
+         "def launch_job(workdir: str, fleet_dir: str, idx: int, device: str) -> subprocess.Popen:",
+         FLEET_JOB),
+        ("""    worker = os.path.join(workdir, "worker.py")
+""", "", FLEET_JOB),
+        ("""            "--no-ft-monitors", "--rdzv-last-call", "0.2",""",
+         """            "--rdzv-last-call", "0.2",""",
+         "the worker's FaultToleranceCallback talks to its rank monitor"),
+        ("""            worker, os.path.join(workdir, "stop"),""",
+         """            "-m", "tpu_resiliency_torch.examples.resilient_training",
+            *(["--device", device] if device else []), *WORKER_WIDTHS,
+            "--steps", str(STEPS), "--step-time", str(STEP_S), "--fault-step", str(FAULT_STEP),
+            "--stop-file", os.path.join(workdir, "stop"),
+            "--ckpt-dir", os.path.join(job_dir, "ckpt"),""", FLEET_JOB),
+        ("def run(sizes, scrapes, workdir: str) -> dict:",
+         "def run(sizes, scrapes, workdir: str, device: str = \"\") -> dict:", FLEET_JOB),
+        ("""    with open(os.path.join(workdir, "worker.py"), "w") as f:
+        f.write(WORKER)
+""", "", FLEET_JOB),
+        ("                procs.append(launch_job(workdir, fleet_dir, len(procs)))",
+         "                procs.append(launch_job(workdir, fleet_dir, len(procs), device))",
+         FLEET_JOB),
+        ("""        "config": {"sizes": list(sizes), "scrapes": scrapes,
+                   "nproc_per_node": 2},""",
+         """        "config": {"sizes": list(sizes), "scrapes": scrapes,
+                   "nproc_per_node": 2, "device": device or "cuda"},""", FLEET_JOB),
+        ("""    ap.add_argument("--smoke", action="store_true",
+                    help="small sizes, few scrapes — the CI smoke leg")
+""", """    ap.add_argument("--smoke", action="store_true",
+                    help="small sizes, few scrapes — the CI smoke leg")
+    ap.add_argument("--device", default="",
+                    help="the workers' device: 'cpu' for the host; the card by default")
+""", FLEET_JOB),
+        ("        res = run(sizes, scrapes, workdir)",
+         "        res = run(sizes, scrapes, workdir, args.device)", FLEET_JOB),
+        ("""        with open(os.path.join(workdir, "stop"), "w"):
+            pass
+        for p in procs:""", """        with open(os.path.join(workdir, "stop"), "w"):
+            pass
+        # Each worker leads its own session, so a signal to its launcher's group does not
+        # reach it: let the workers end on the stop file (their launchers exit with them)
+        # before the work directory, and the file, go away.
+        deadline = time.time() + 30
+        for p in procs:
+            try:
+                p.wait(timeout=max(0.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+        for p in procs:""", "the workers, unlike the reference's, have no deadline of their own to end "
+                            "by, and a worker that misses the stop file runs on"),
+        ("""                try:
+                    os.killpg(os.getpgid(p.pid), signal.SIGKILL)
+                except (OSError, ProcessLookupError):
+                    pass
+
+    lo, hi = results[0], results[-1]""", """                try:
+                    os.killpg(os.getpgid(p.pid), signal.SIGKILL)
+                except (OSError, ProcessLookupError):
+                    pass
+        # A killed launcher's workers outlive it (the SIGKILL leg's job): end every
+        # process left whose command line names this run's stop file.
+        stop = os.path.join(workdir, "stop").encode()
+        for pid in filter(str.isdigit, os.listdir("/proc")):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    if stop in f.read():
+                        os.kill(int(pid), signal.SIGKILL)
+            except (OSError, ProcessLookupError):
+                pass
+
+    lo, hi = results[0], results[-1]""", "the killed job's workers wait on its dead store and never reach "
+                                          "the stop file; the reference's worker has its deadline"),
+    ),
+    "scripts/bench_reshard.py": (
+        ("    python scripts/bench_reshard.py [--mb 64] [--with-1g] [--out BENCH_reshard.json]",
+         "    python -m tpu_resiliency_torch.scripts.bench_reshard [--mb 64] [--with-1g] "
+         "[--out BENCH_reshard.json]", SCRIPT_USAGE),
+        ("sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))\n",
+         "sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(\n"
+         "    os.path.abspath(__file__)))))\n", SCRIPT_ROOT),
+        ("from tpu_resiliency_torch.platform.store import CoordStore, KVServer  # noqa: E402\n",
+         "from tpu_resiliency_torch.platform.store import CoordStore, KVServer  # noqa: E402\n"
+         "from tpu_resiliency_torch.scripts import DEFAULT_OUT_DIR  # noqa: E402\n", SCRIPT_OUT),
+        ('    ap.add_argument("--out", default=None, help="write the JSON report here")',
+         '    ap.add_argument("--out", default=os.path.join(DEFAULT_OUT_DIR, "BENCH_reshard.json"),\n'
+         '                    help="write the JSON report here")', SCRIPT_OUT),
+        ("""    if args.out:
+        with open(args.out, "w") as f:""", """    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:""", "build/ may not exist yet"),
+    ),
+    "scripts/chaos_soak.py": (
+        ("""    python scripts/chaos_soak.py --smoke            # fast fixed-seed pass (CI)
+    python scripts/chaos_soak.py --seed 7           # one full seeded pass
+    python scripts/chaos_soak.py --soak-runs 10     # randomized soak""",
+         """    python -m tpu_resiliency_torch.scripts.chaos_soak --smoke         # fast fixed-seed pass
+    python -m tpu_resiliency_torch.scripts.chaos_soak --seed 7        # one full seeded pass
+    python -m tpu_resiliency_torch.scripts.chaos_soak --soak-runs 10  # randomized soak""",
+         SCRIPT_USAGE),
+        ("sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))\n",
+         "sys.path.insert(0, REPO_ROOT)\n", SCRIPT_ROOT),
+        ("import threading\nimport time\n\n",
+         "import threading\nimport time\n\n"
+         "REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))\n",
+         SCRIPT_ROOT),
+        ("""    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env.update(
+        JAX_PLATFORMS="cpu",
+        TPU_RESILIENCY_CHAOS=""", """    repo = REPO_ROOT
+    env.update(
+        JAX_PLATFORMS="cpu",
+        TPU_RESILIENCY_CHAOS=""", SCRIPT_ROOT),
+        ("""    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env.update(
+        JAX_PLATFORMS="cpu",
+        TPU_RESILIENCY_EVENTS_FILE=""", """    repo = REPO_ROOT
+    env.update(
+        JAX_PLATFORMS="cpu",
+        TPU_RESILIENCY_EVENTS_FILE=""", SCRIPT_ROOT),
+    ),
 }
 
 
 def reference_path(path: str) -> Path:
-    return REPO / path if path.startswith("native/") else REPO / "tpu_resiliency" / path
+    if path.startswith(("native/", "scripts/")):
+        return REPO / path
+    return REPO / "tpu_resiliency" / path
 
 
 @pytest.mark.parametrize("path", sorted(COPIES))

@@ -4,21 +4,26 @@ port, and small worlds of gloo ranks, each a fresh interpreter (``subprocess``, 
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
 
 import numpy as np
 
+from tpu_resiliency_torch.platform.distributed import reserve_port
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+_HELD_PORTS = []
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
+def held_port() -> int:
+    """A localhost port reserved (``platform/distributed.py`` ``reserve_port``) for the
+    rest of this process's life, for a store, a group or a launcher that binds it later,
+    here or in a child: no other process takes it first."""
+    port, held = reserve_port()
+    _HELD_PORTS.append(held)
+    return port
 
 def numpy_tree(tree):
     """A JAX tree (nested dicts of arrays) as nested dicts of numpy arrays."""
@@ -51,7 +56,7 @@ def run_gloo(body: str, world: int, args=None, timeout: float = 240.0, threads=N
     ``threads``: each rank's intra-op threads (``OMP_NUM_THREADS``; torch's default
     otherwise, every core in every rank)."""
     code = CHILD_HEAD + textwrap.dedent(body) + "\ndist.destroy_process_group()\n"
-    port = free_port()
+    port, held = reserve_port()  # held until every rank is done
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     if threads is not None:
         env["OMP_NUM_THREADS"] = str(threads)
@@ -72,4 +77,5 @@ def run_gloo(body: str, world: int, args=None, timeout: float = 240.0, threads=N
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        held.close()
     return results

@@ -30,18 +30,9 @@ from __future__ import annotations
 import argparse
 import multiprocessing as mp
 import os
-import socket
 import sys
 import tempfile
 import time
-
-
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def init_params(device) -> dict:
@@ -173,7 +164,9 @@ def main(argv=None) -> int:
     if args.ckpt_root is None:
         args.ckpt_root = tempfile.mkdtemp(prefix="inproc-example-")
 
-    port = free_port()
+    from tpu_resiliency_torch.platform.distributed import reserve_port
+
+    port, held = reserve_port()  # rank 0's store binds it; held until the ranks are done
     ctx = mp.get_context("spawn")  # the parent never touches CUDA before a child starts
     q = ctx.Queue()
     procs = [
@@ -199,6 +192,7 @@ def main(argv=None) -> int:
         if p.is_alive():
             p.terminate()
             p.join(timeout=10)
+    held.close()
 
     survivors = {
         r: v for r, v in results.items() if isinstance(v, dict) and "error" not in v

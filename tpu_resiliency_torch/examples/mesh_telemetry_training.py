@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import socket
 import sys
 import time
 
@@ -49,21 +48,22 @@ from tpu_resiliency_torch.platform.device import resolve_device  # noqa: E402
 from tpu_resiliency_torch.platform.store import CoordStore, store_addr_from_env  # noqa: E402
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def join_group(store, host: str, rank: int, world: int, device) -> None:
     """The job's gloo group, its address agreed on the launcher's store: rank 0
-    publishes a free port for this launcher round, the others wait for it."""
+    reserves a port for this launcher round (``distributed.reserve_port``), publishes
+    it and binds it, the others wait for it."""
     key = f"mesh_telemetry/group_port/{os.environ.get('TPU_FT_RESTART_COUNT', '0')}"
+    held = None
     if rank == 0:
-        store.set(key, free_port())
+        port, held = distributed.reserve_port()
+        store.set(key, port)
     port = store.get(key, timeout=60.0)
-    distributed.initialize(f"tcp://{host}:{port}", world, rank, backend="gloo",
-                           timeout=60.0, device=device)
+    try:
+        distributed.initialize(f"tcp://{host}:{port}", world, rank, backend="gloo",
+                               timeout=60.0, device=device)
+    finally:
+        if held is not None:
+            held.close()
 
 
 @record

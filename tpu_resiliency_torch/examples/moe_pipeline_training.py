@@ -28,19 +28,12 @@ from __future__ import annotations
 
 import argparse
 import os
-import socket
 import subprocess
 import sys
 import tempfile
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 RANK_TIMEOUT_S = 600.0  # the Wrapper's own barrier and completion timeouts
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def train_tree(model, opt) -> dict:
@@ -206,14 +199,20 @@ def main(argv=None) -> int:
             print(f"DONE loss={final:.4f}", flush=True)
         return 0
 
+    from tpu_resiliency_torch.platform.distributed import reserve_port
+
     ckpt_root = args.ckpt_root or tempfile.mkdtemp(prefix="moe-pp-ckpt-")
+    # The Wrapper's store (rank 0 binds it) and one group per iteration: each port is
+    # held here until the ranks are done, so no other process takes it before its
+    # binder does.
+    reserved = [reserve_port() for _ in range(5)]
     env = dict(os.environ, RANK="", WORLD_SIZE=str(args.world),
                TPU_RESILIENCY_STORE_HOST="127.0.0.1",
-               TPU_RESILIENCY_STORE_PORT=str(free_port()),
+               TPU_RESILIENCY_STORE_PORT=str(reserved[0][0]),
                PYTHONPATH=REPO_ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     if args.device == "cpu":  # each rank takes its share of the host's cores
         env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // args.world)))
-    ports = ",".join(str(free_port()) for _ in range(4))
+    ports = ",".join(str(port) for port, _ in reserved[1:])
     procs = []
     for r in range(args.world):
         env["RANK"] = str(r)
@@ -231,6 +230,8 @@ def main(argv=None) -> int:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        for _, held in reserved:
+            held.close()
     if any(rcs):
         print(f"FAILED: rank exit codes {rcs}", flush=True)
         return 1

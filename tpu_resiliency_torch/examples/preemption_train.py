@@ -13,7 +13,8 @@ Run (2 ranks on the CPU; the parent SIGTERMs rank 1 about 2 s into training)::
 
     python -m tpu_resiliency_torch.examples.preemption_train --world 2 --device cpu
 
-Without ``--device`` every rank runs on the card (``cuda:<rank % cards>``).
+Without ``--device`` every rank runs on the card (``cuda:<rank % cards>``), in a gloo
+group where ranks share a card (NCCL refuses two ranks on one).
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import argparse
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -31,12 +31,6 @@ import threading
 import time
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 CHILD = textwrap.dedent(
@@ -52,9 +46,12 @@ CHILD = textwrap.dedent(
     from tpu_resiliency_torch.platform.device import resolve_device
 
     dev = resolve_device(device)
+    backend = None  # the device's: NCCL on the card, gloo on the host
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
-    tdist.initialize(f"tcp://127.0.0.1:{port}", world, rank, device=dev)
+        if world > torch.cuda.device_count():
+            backend = "gloo"  # NCCL refuses two ranks on one card
+    tdist.initialize(f"tcp://127.0.0.1:{port}", world, rank, backend=backend, device=dev)
 
     from tpu_resiliency_torch.checkpoint import LocalCheckpointManager, PyTreeStateDict
     from tpu_resiliency_torch.integrations import PreemptionCheckpointCallback
@@ -109,14 +106,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     ckpt_root = args.ckpt_root or tempfile.mkdtemp(prefix="preempt-example-")
     print(f"[parent] checkpoints in {ckpt_root} (pass --ckpt-root here to resume)")
-    port = free_port()
+    from tpu_resiliency_torch.platform.distributed import reserve_port
+
+    port, held = reserve_port()  # rank 0's group store binds it; held until the end
     child_env = {
         **os.environ,
         # uninstalled checkouts: children run from a temp dir
         "PYTHONPATH": REPO_ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
     }
 
-    with tempfile.TemporaryDirectory(prefix="preempt-src-") as d:
+    with tempfile.TemporaryDirectory(prefix="preempt-src-") as d, held:
         script = os.path.join(d, "child.py")
         with open(script, "w") as f:
             f.write(CHILD)

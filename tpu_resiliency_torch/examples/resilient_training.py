@@ -264,6 +264,8 @@ def main():
     ap.add_argument("--verify", action="store_true")
     ap.add_argument("--stop-file", default=None,
                     help="end the run after the step in which this file appears")
+    ap.add_argument("--step-time", type=float, default=0.0,
+                    help="seconds each step waits after its work: a paced job")
     args = ap.parse_args()
 
     rank = int(os.environ.get("RANK", "0"))
@@ -322,6 +324,8 @@ def main():
         t0 = time.time()
         state = work.step(state, i)
         step_seconds.append(time.time() - t0)
+        if args.step_time:
+            time.sleep(args.step_time)
         if i == ctx.start_step:
             record_event("example", "worker_stage", stage="first_step", t=time.time(),
                          step=i, seconds=step_seconds[-1],

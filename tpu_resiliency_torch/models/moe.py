@@ -90,12 +90,16 @@ def _route(cfg: MoEConfig, y: torch.Tensor, w_router: torch.Tensor):
 
     logits = y.float() @ w_router.float()  # [B, T, E]
     probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.topk(probs, K, dim=-1)  # [B, T, K]
+    _, idx = torch.topk(probs.detach(), K, dim=-1)  # [B, T, K]
+    mask = F.one_hot(idx, E).float()  # [B, T, K, E]
+    # The top-k probabilities picked by the one-hot mask: the same values and gradient
+    # as topk's, whose backward scatter has no DTensor rule for batch-sharded inputs
+    # under torch 2.11 (it would gather the batch).
+    gates = (mask * probs[..., None, :]).sum(-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
     # First-come-first-served capacity: flatten (T, K) token-major so earlier
     # tokens (and higher-ranked choices) win slots, as in the GShard formulation.
-    mask = F.one_hot(idx, E).float()  # [B, T, K, E]
     flat = mask.reshape(B, T * K, E)
     pos = torch.cumsum(flat, dim=1) - flat  # slot index if admitted
     flat = flat * (pos < C)

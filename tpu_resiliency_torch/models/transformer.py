@@ -406,21 +406,29 @@ def sharding_context(params):
     return contextlib.nullcontext()
 
 
-def replicated(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor redistributed to ``Replicate()`` on every mesh dimension; any other
-    tensor as it is. The model calls it where DTensor has no sharding rule for an op
-    (ROADMAP.md, "DTensor gaps"): the op then runs on the whole value, so the math
-    never changes."""
+def replicated(t: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+    """A DTensor redistributed to ``Replicate()`` on every mesh dimension, or with
+    ``dim`` only on the mesh dimensions that shard its tensor dim ``dim`` or hold
+    partial sums; any other tensor as it is. The model calls it where DTensor has no
+    sharding rule for an op (ROADMAP.md, "DTensor gaps"): the op then runs on the whole
+    value along that dim, so the math never changes."""
     if not hasattr(t, "redistribute"):
         return t
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Replicate, Shard
 
-    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+    places = [Replicate() if dim is None or p.is_partial() or (
+        isinstance(p, Shard) and p.dim % t.ndim == dim) else p for p in t.placements]
+    return t.redistribute(t.device_mesh, places)
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     # DTensor gap: no rule gathers rows of a row-sharded table.
-    return replicated(params["embed"]).to(cfg.dtype)[tokens]
+    table = replicated(params["embed"]).to(cfg.dtype)
+    if hasattr(table, "device_mesh"):
+        # The lookup's backward has a rule for batch-sharded tokens (a partial sum);
+        # indexing's (an index_put) would gather the batch.
+        return F.embedding(tokens, table)
+    return table[tokens]
 
 
 def head(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -449,9 +457,19 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, *, attn_fn=Non
 def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Per-position next-token NLL, ``logsumexp(logits) - logits[target]``: never
     materializes the ``[B, T, V]`` log-prob tensor."""
-    # DTensor gap: the target pick on vocab-sharded logits (a gather along a sharded
-    # dim) fails in DTensor's masked partial; the logits are gathered first.
-    logits = replicated(logits)
+    if hasattr(logits, "to_local"):
+        # DTensor gap: the target pick (a gather) on sharded logits fails in DTensor's
+        # masked partial. The vocab dim is gathered, and each rank picks on its own
+        # positions: the batch and the sequence keep their placements, so a data-parallel
+        # step gathers nothing.
+        from torch.distributed.tensor import DTensor
+
+        logits = replicated(logits, dim=logits.ndim - 1)
+        mesh, places = logits.device_mesh, logits.placements
+        if hasattr(targets, "redistribute"):
+            targets = targets.redistribute(mesh, places).to_local()
+        local = token_nll(logits.to_local(), targets)
+        return DTensor.from_local(local, mesh, places, run_check=False)
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, targets[..., None])[..., 0]
     return lse - picked

@@ -26,6 +26,8 @@ and contracts:
 - :func:`shutdown_ordered` and :func:`shutdown_graceful` keep the reference's
   end-of-job protocol: the rank that hosts the rendezvous (active rank 0, whose
   ``tcp://`` init method runs the TCP store) tears down last.
+- :func:`reserve_port` gives a parent the port its children meet on, held until they
+  have bound it.
 
 The reference's ``clear_backends`` has no torch counterpart: a process group holds
 no compiled programs or device buffers that a re-initialize must drop, and
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
 import time
 
 import torch
@@ -60,6 +63,25 @@ RECOVERABLE_NCCL_ERROR_HANDLING = "2"
 #: ``"backend.abort"``, ``"_abort_process_group"``, or ``None`` when no NCCL group
 #: was live.
 last_abort_method: str | None = None
+
+
+def reserve_port(host: str = "127.0.0.1") -> tuple[int, socket.socket]:
+    """A free TCP port on ``host``, and the socket that holds it.
+
+    The socket is bound with ``SO_REUSEADDR`` and never listens. On Linux the process
+    that serves the port may still bind it and listen, if it also sets
+    ``SO_REUSEADDR``: a ``KVServer`` and rank 0's ``TCPStore`` of a ``tcp://``
+    init method both do. Meanwhile the kernel hands the port to no other
+    ``bind(("", 0))`` and no outgoing connection. Keep the socket open until the
+    server has bound the port (the job's end is simplest), then close it.
+
+    A port found by binding a socket and closing it again is free to anyone until the
+    server binds it: under load another process took it first, and children failed to
+    bind it or met on another job's store."""
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind((host, 0))
+    return s.getsockname()[1], s
 
 
 def client_active() -> bool:

@@ -1349,6 +1349,17 @@ class KVClient:
                     pass
                 self._sock = None
                 raise StoreTransportError(f"store transport failure: {e!r}") from e
+            except BaseException:
+                # An exception raised into this thread mid-call (the in-process
+                # Wrapper's restart signal, a KeyboardInterrupt) leaves this call's
+                # reply unread on the socket, where the next call would read it as
+                # its own: drop the socket.
+                try:
+                    self._sock.close()
+                except OSError:
+                    pass
+                self._sock = None
+                raise
         return self._parse(req, resp)
 
     def _call_oneshot(self, req: dict, wait_s: float) -> Any:

@@ -41,7 +41,6 @@ import argparse
 import json
 import multiprocessing as mp
 import os
-import socket
 import statistics
 import subprocess
 import sys
@@ -52,14 +51,6 @@ import time
 from tpu_resiliency_torch.scripts import DEFAULT_OUT_DIR, device_fields
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def _env() -> dict:
@@ -112,7 +103,9 @@ def _inproc_rank(rank: int, port: int, n_restarts: int, q) -> None:
 
 
 def bench_inprocess(n_restarts: int) -> dict:
-    port = free_port()
+    from tpu_resiliency_torch.platform.distributed import reserve_port
+
+    port, held = reserve_port()  # rank 0's store binds it; held until the ranks are done
     ctx = mp.get_context("spawn")  # safe from a caller that holds CUDA or NCCL state
     q = ctx.Queue()
     procs = [
@@ -135,6 +128,7 @@ def bench_inprocess(n_restarts: int) -> dict:
         p.join(20.0)
         if p.is_alive():
             p.terminate()
+    held.close()
     assert [out.get(r, (None,))[0] for r in range(2)] == ["done", "done"], (
         out, [p.exitcode for p in procs])
 
