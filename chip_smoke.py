@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's straggler-telemetry, in-process restart, checkpoint,
-in-job restart, model, parallel model, observability and fleet paths, and the
-reference's measuring harnesses, on one CUDA card.
+in-job restart, model, parallel model, observability and fleet paths, the
+reference's measuring harnesses and its north-star benchmark, on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA card
 and the CUDA toolkit (``nvcc``), builds the port's three window-reduction kernels
@@ -381,6 +381,19 @@ printing one JSON line that carries the card's name and power limit:
    logits' error and its control's; the ranks' ``loop`` launches go on the ``kernels``
    line. This phase runs the ``inprocess_restart_train`` example that ``parallel_path``
    (e) ran, so the whole run leaves (e) out.
+21. ``bench_path``: the port's north-star benchmark (``tpu_resiliency_torch/bench.py``,
+   the repo's ``bench.py``) whole, at config 4's defaults, as a child of the repo root:
+   the host baseline, then each variant (``sort``, ``loop``, ``pairwise``, ``radix``,
+   ``rings``) in a fresh interpreter. Its last line must read backend ``cuda``, name
+   this card, carry a ``value`` and a ``vs_baseline``; every variant's F1 must reach
+   0.99, every kernel variant's straggler mask (its digest) equal the ``sort``
+   variant's, each kernel variant launch its kernel, and no child run ``nvcc`` (the
+   ``build`` phase built them). Then ``scripts/bench_pallas_sweep.py`` (the whole
+   scoring round per mode against the sort path) in this process at W in {32, 512} x
+   R = 4096: its loop cap and radix verdict beside the package's defaults (a
+   disagreement is printed as a finding). Printed beside: the bench's push, score and
+   amortised ms and the ``times`` phase's. The children's launches go on the
+   ``kernels`` line (``bench_path_launches``); the phase within 90 s.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
@@ -400,12 +413,12 @@ from pathlib import Path
 
 import numpy as np
 
-R, S, W = 4096, 64, 32  # config 4
+from tpu_resiliency_torch.bench import (  # config 4 and bench.py's seeded telemetry
+    R, S, SLOW_FRACTION, SLOWDOWN, W, f1, make_telemetry)
+
 LONG_W = 512  # the long-window path
 LONG_PARTIAL = 300  # pushes before its second report
 CPU_RANKS = 256  # ranks of the CPU comparison of the long-window run
-SLOW_FRACTION = 0.05
-SLOWDOWN = 1.6
 EDGE_WINDOWS = (1, 2, 7, 31, 32, 33, 63, 64, 65, 128, 256)
 MODE_EDGE_WINDOWS = (1, 7, 32, 129, 256, 512, 1024)
 RADIX_ADVERSARIAL_WINDOWS = (1, 7, 33, 129, 512)  # and the tile's largest window
@@ -526,21 +539,6 @@ KERNELS = {
         "replaces": "tpu_resiliency/ops/scoring_pallas.py:139",
     },
 }
-
-
-def make_telemetry(seed=0, w=W, ranks=R):
-    """``bench.py``'s seeded config-4 telemetry at window ``w``: windows [ranks, S, w],
-    full counts, and the truth mask of the slow ranks."""
-    rng = np.random.default_rng(seed)
-    base = rng.uniform(0.8, 1.2, size=(1, S, 1)).astype(np.float32)
-    data = base * (1.0 + 0.05 * rng.standard_normal((ranks, S, w)).astype(np.float32))
-    n_slow = int(ranks * SLOW_FRACTION)
-    slow_ranks = rng.choice(ranks, size=n_slow, replace=False)
-    data[slow_ranks] *= SLOWDOWN
-    counts = np.full((ranks, S), w, dtype=np.int32)
-    truth = np.zeros(ranks, dtype=bool)
-    truth[slow_ranks] = True
-    return data, counts, truth
 
 
 def radix_adversarial(w, seed, ranks=64, signals=64):
@@ -697,15 +695,6 @@ def digit_work(data, counts, chunk=1 << 15):
             rounds[a:a + chunk] += live.to(torch.int64)
             cand = cand & ~(live[:, None] & (digit != pick))
     return rounds, examined
-
-
-def f1(pred_mask, truth):
-    tp = int((pred_mask & truth).sum())
-    fp = int((pred_mask & ~truth).sum())
-    fn = int((~pred_mask & truth).sum())
-    prec = tp / max(tp + fp, 1)
-    rec = tp / max(tp + fn, 1)
-    return 2 * prec * rec / max(prec + rec, 1e-9)
 
 
 def edge_case(w, seed):
@@ -4605,6 +4594,93 @@ def graft_path(smoke, device="cuda", n=GRAFT_RANKS, budget_s=GRAFT_BUDGET_S):
     return res["loop_launches"]
 
 
+BENCH_BUDGET_S = 90.0  # the phase's share of the script's time
+BENCH_MIN_F1 = 0.99
+BENCH_SWEEP_WS = (32, LONG_W)  # bench_pallas_sweep's grid: config 4's window and the long one
+BENCH_SWEEP_RS = (R,)
+
+
+def cap_agrees(derived_cap: int, windows, default_cap: int) -> bool:
+    """Whether a sweep's loop cap over ``windows`` is consistent with the package's
+    default: the default lies at or past the derived cap and short of the next window
+    the sweep tried past it (a grid without the default's window cannot name it)."""
+    past = [w for w in sorted(windows) if w > derived_cap]
+    return derived_cap <= default_cap and (not past or default_cap < past[0])
+
+
+def bench_path(smoke, times, device="cuda", bench_args=(), sweep_ws=BENCH_SWEEP_WS,
+               sweep_rs=BENCH_SWEEP_RS, budget_s=BENCH_BUDGET_S):
+    """Phase 21: ``python -m tpu_resiliency_torch.bench`` whole, then
+    ``scripts/bench_pallas_sweep.py`` in this process (see the module's docstring).
+    ``times``: the ``times`` phase's config-4 figures, printed beside the bench's.
+    ``device="cpu"`` and small ``bench_args`` and grid rehearse it on the host. Returns
+    the children's launches by mode."""
+    import torch
+
+    from tpu_resiliency_torch import bench
+    from tpu_resiliency_torch.ops import scoring_kernels as sk
+    from tpu_resiliency_torch.scripts import bench_pallas_sweep
+
+    cuda = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    code, out, err = run_module("tpu_resiliency_torch.bench",
+                                [*bench_args, *([] if cuda else ["--device", "cpu"])],
+                                timeout=600)
+    if code != 0:
+        raise AssertionError(f"bench_path: the bench exited {code}:\n{err[-3000:]}")
+    line = json.loads(out.strip().splitlines()[-1])
+    bench_s = time.perf_counter() - t_phase
+    variants = line["variants"]
+    kernel_variants = [v for v in bench.VARIANTS if v != "sort"]
+    rings = line["rings"]
+    modes = {**bench.SCORE_VARIANTS, bench.RINGS: rings["kernel_mode"] or "loop"}
+    launches = dict.fromkeys(sk.MODES, 0)
+    for v in kernel_variants:
+        launches[modes[v]] += variants[v]["launches"]
+    checks = {
+        "backend": line["backend"] == ("cuda" if cuda else "cpu"),
+        "device_kind_names_the_card": line["device_kind"] == (
+            torch.cuda.get_device_name(0) if cuda else "cpu"),
+        "card_and_power_limit": (line["card"] == smoke.card and bool(line["power_limit"]))
+        if cuda else line["card"] is None,
+        "value": line["value"] is not None and line["value"] > 0,
+        "vs_baseline": (line["vs_baseline"] is not None) if cuda else line["vs_baseline"] is None,
+        "every_variant": sorted(variants) == sorted(bench.VARIANTS),
+        "f1": all(v["f1"] >= BENCH_MIN_F1 for v in variants.values()),
+        "masks_equal_sort": all(variants[v]["mask_digest"] == variants["sort"]["mask_digest"]
+                                for v in kernel_variants),
+        "kernels_launched": variants["sort"]["launches"] == 0 and all(
+            (variants[v]["launches"] >= 1) == cuda for v in kernel_variants),
+        "no_nvcc_in_children": all(v["nvcc_runs"] == 0 for v in variants.values()),
+    }
+    t0 = time.perf_counter()
+    sweep = bench_pallas_sweep.run(sweep_ws, sweep_rs, device=device)
+    sweep_s = time.perf_counter() - t0
+    agree = {"loop_max_window": cap_agrees(sweep["loop_max_window"], sweep_ws,
+                                           sk.DEFAULT_MAX_WINDOW),
+             "radix_auto": sweep["radix_beats_sort_past_cap"] == sk.DEFAULT_RADIX_AUTO}
+    findings = [f"the sweep's {k} disagrees with the package's default" for k, ok in
+                agree.items() if not ok]
+    elapsed = time.perf_counter() - t_phase
+    checks["within_budget"] = elapsed <= budget_s
+    smoke.emit(
+        "bench_path", seconds=elapsed, budget_s=budget_s, bench_seconds=bench_s,
+        sweep_seconds=sweep_s, checks=checks, bench=line,
+        beside_times={"bench": {"push_ms_per_step": rings["push_ms"],
+                                "score_ms_per_report": rings["score_ms"],
+                                "amortised_ms_per_step": rings["per_step_ms"]},
+                      "times": {k: times[k] for k in ("push_ms_per_step",
+                                                      "score_ms_per_report",
+                                                      "amortised_ms_per_step")}},
+        sweep=sweep, sweep_agrees=agree, findings=findings,
+        defaults={"loop_max_window": sk.DEFAULT_MAX_WINDOW, "radix_auto": sk.DEFAULT_RADIX_AUTO},
+        launches=launches, bench_stderr_tail=err[-2000:])
+    failed = sorted(k for k, ok in checks.items() if not ok)
+    if failed:
+        raise AssertionError(f"bench_path: {failed}")
+    return launches
+
+
 def main() -> int:
     import os
 
@@ -4729,7 +4805,7 @@ def main() -> int:
         check_modes(f"edge_w{w}", modes + ("loop",) if w <= 256 else modes,
                     torch.tensor(d, device=dev), torch.tensor(c, device=dev))
 
-    long_np, _, long_truth = make_telemetry(seed=0, w=LONG_W)
+    long_np, _, long_truth = make_telemetry(seed=0, window=LONG_W)
     long_ring = torch.tensor(np.ascontiguousarray(long_np.transpose(2, 0, 1)), device=dev)
     del long_np
     long_view = long_ring.permute(1, 2, 0)
@@ -5116,11 +5192,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     path_launches["loop"] += graft_path(smoke)
 
+    # 21. bench path: bench.py's variants, each in a fresh interpreter; the sweep ------
+    torch.cuda.empty_cache()
+    bench_launches = bench_path(smoke, t4)
+    for mode, n in bench_launches.items():
+        path_launches[mode] += n
+
     kernels = []
     for mode in sk.MODES:
         b = bound[mode]
         kernels.append(dict(
             KERNELS[mode], launches=path_launches[mode], max_abs_err=max_abs_err[mode],
+            bench_path_launches=bench_launches[mode],
             ms=timed[(cell_of[mode], "kernel", mode)]["ms"],
             events_ms=timed[(cell_of[mode], "kernel", mode)]["events_ms"],
             plain_ms=timed[(cell_of[mode], "plain", mode)]["ms"],

@@ -195,6 +195,8 @@ ROOT_MODULES = (
     "tpu_resiliency_torch.scripts.bench_replication",
     "tpu_resiliency_torch.scripts.bench_fleet",
     "tpu_resiliency_torch.scripts.bench_ckpt_io",
+    "tpu_resiliency_torch.bench",
+    "tpu_resiliency_torch.scripts.bench_pallas_sweep",
 )
 
 ALL_SLICES = (SLICE_MODULES + INPROCESS_MODULES + CHECKPOINT_MODULES + FT_MODULES + MODEL_MODULES

@@ -220,16 +220,13 @@ ROOT_PORTS = (
     "scripts/bench_replication.py",
     "scripts/bench_fleet.py",
     "scripts/bench_ckpt_io.py",
+    "bench.py",
+    "scripts/bench_pallas_sweep.py",
 )
 
 #: The repo-root files that call JAX and have no counterpart in the port yet, each
-#: with its reason.
-ROOT_NOT_YET_PORTED = {
-    "bench.py": "config 4's benchmark; the port's is a benchmark of its own, to come "
-                "(ROADMAP Queue 1 item 1)",
-    "scripts/bench_pallas_sweep.py": "answered by ops/kernel_sweep.py, the port's sweep of "
-                                     "its CUDA kernels",
-}
+#: with its reason: none is left.
+ROOT_NOT_YET_PORTED: dict[str, str] = {}
 
 #: A line of a file that imports JAX (a worker script inside a string counts).
 IMPORTS_JAX = re.compile(r"^\s*(import jax\b|from jax\b)", re.M)

@@ -13,7 +13,7 @@ runs only on the card (``chip_smoke.py``, and the ``gpu`` tests of
 (``chip_smoke.radix_adversarial``).
 
 Run as a script, it prints the rounds per window on the long-window telemetry
-(``chip_smoke.make_telemetry`` at W = 512)::
+(``chip_smoke.make_telemetry``, bench.py's, at W = 512)::
 
     python tests/test_torch_radix_digit.py
 """
@@ -171,7 +171,7 @@ def test_signed_zeros_and_ties():
 def test_bench_telemetry_around_one():
     """Long-window telemetry at W = 512 (a few ranks): bit-equal to both, and no
     window takes more than a handful of rounds."""
-    data, counts, _ = make_telemetry(seed=0, w=512, ranks=8)
+    data, counts, _ = make_telemetry(seed=0, window=512, ranks=8)
     data, counts = data[:, :16], counts[:, :16]
     counts[:, 8:] = np.arange(8) * 60 + 1  # partial windows as well
     med, rounds, examined = model(data, counts)
@@ -226,7 +226,7 @@ def test_chip_smoke_counts_the_models_rounds(w):
 
 def rounds_on_telemetry(ranks=64, w=512, seed=0):
     """Rounds per window of the model on ``make_telemetry`` data (full windows)."""
-    data, counts, _ = make_telemetry(seed=seed, w=w, ranks=ranks)
+    data, counts, _ = make_telemetry(seed=seed, window=w, ranks=ranks)
     _, rounds, examined = model(data, counts)
     hist = np.bincount(rounds.reshape(-1))
     return {

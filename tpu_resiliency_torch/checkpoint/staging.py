@@ -106,9 +106,12 @@ class StagingLease:
         """Copy one leaf into its staged window; returns the staged typed view. A
         card tensor is copied ``non_blocking`` on the current stream, which then
         records the leaf's event (:meth:`wait` blocks on it); a host tensor or array
-        is copied at once (torch's copy drops the GIL for the memcpy, so background
-        staging never stalls the train-loop thread)."""
-        from tpu_resiliency_torch.checkpoint.state_dict import from_numpy
+        is copied at once, by numpy: one memcpy in the calling thread, which drops the
+        GIL, so background staging never stalls the train-loop thread. torch's CPU
+        copy would split a large leaf over its intra-op threads, and two copies at
+        once (a clique's ranks in one process, or a save's foreground beside another
+        save's background) oversubscribe that pool and stall."""
+        from tpu_resiliency_torch.checkpoint.state_dict import from_numpy, to_numpy
 
         if not isinstance(src, torch.Tensor):
             src = np.asarray(src)  # (np.ascontiguousarray would make a 0-d leaf 1-d)
@@ -121,7 +124,7 @@ class StagingLease:
                 f"signature says {self.key[index][2]} B"
             )
         if not src.is_cuda:
-            dst.copy_(src)
+            np.copyto(to_numpy(dst), to_numpy(src.detach()))
             return dst
         try:
             dst.copy_(src, non_blocking=True)
@@ -157,7 +160,8 @@ class HostStagingPool:
     ``acquire(specs)`` returns a :class:`StagingLease` — a pooled buffer on a
     hit, a freshly allocated one while fewer than ``depth`` leases of that
     signature exist, and otherwise blocks until a lease releases (``timeout``
-    seconds, then :class:`CheckpointError`). Thread-safe; leases release from
+    seconds, then :class:`CheckpointError`). ``try_acquire(specs)`` returns a pooled
+    buffer or ``None`` at once (a save's foreground). Thread-safe; leases release from
     background writer threads. The buffers are pinned when the machine has a CUDA
     card, so a card leaf is only ever staged into pinned memory.
     """
@@ -224,6 +228,26 @@ class HostStagingPool:
             "checkpoint", "staging_pool",
             outcome=outcome, nbytes=need, pool_bytes=pool_bytes,
             in_use_bytes=in_use,
+        )
+        return StagingLease(self, key, backing)
+
+    def try_acquire(self, specs: Sequence[dict]) -> Optional[StagingLease]:
+        """A released buffer of this signature, or ``None`` at once: never allocates,
+        never waits. The pipelined save's foreground snapshots host leaves straight
+        into it; without one it clones them fresh and acquires in the background."""
+        key = leaf_signature(specs)
+        need = _lease_bytes(key)
+        with self._cond:
+            free = self._free.get(key)
+            if not free:
+                return None
+            backing = free.pop()
+            self.hits += 1
+            self.in_use_bytes += need
+            pool_bytes, in_use = self.total_bytes, self.in_use_bytes
+        record_event(
+            "checkpoint", "staging_pool",
+            outcome="hit", nbytes=need, pool_bytes=pool_bytes, in_use_bytes=in_use,
         )
         return StagingLease(self, key, backing)
 

@@ -236,21 +236,39 @@ class HostSnapshot:
     consumes.
 
     Created by :meth:`PyTreeStateDict.copy_tensors_to_host_async`. Construction
-    snapshots every tensor leaf where it lies (a ``clone`` on the card's current
-    stream, followed by one event; a CPU tensor is cloned at once), so in-place
-    updates after the call never reach the saved bytes. The first ``resolve`` (on the
-    background thread) acquires the staging lease — pinned host memory — and enqueues
-    every card leaf's ``non_blocking`` copy into it on a side stream that waits on the
-    snapshot's event, one event per leaf. ``resolve(i)`` then waits only on leaf
-    ``i``'s event, returns the staged host array and drops the device snapshot of that
-    leaf, so device memory frees as the pipeline advances. Single-consumer: the
-    background writer resolves leaves in order; no internal locking.
+    snapshots every tensor leaf where it lies, so in-place updates after the call never
+    reach the saved bytes: a card leaf by a ``clone`` on the card's current stream,
+    followed by one event; a CPU leaf by a copy into a recycled staging buffer when
+    ``pool`` holds a released one of this tree's signature
+    (:meth:`~tpu_resiliency_torch.checkpoint.staging.HostStagingPool.try_acquire`,
+    which neither allocates nor waits), and by a fresh clone otherwise. A buffer is
+    released only by :meth:`release`, after the background half is done with every
+    leaf, so a foreground copy never lands in one a writer may still read. Without a
+    lease from the foreground, the first ``resolve`` (on the background thread)
+    acquires one (pinned host memory when a card exists). The first ``resolve``
+    enqueues every card leaf's ``non_blocking`` copy into the lease on a side stream
+    that waits on the snapshot's event, one event per leaf. ``resolve(i)`` then waits
+    only on leaf ``i``'s event, returns the staged host array and drops the device
+    snapshot of that leaf, so device memory frees as the pipeline advances.
+    Single-consumer: the background writer resolves leaves in order; no internal
+    locking.
     """
 
     def __init__(self, tensors: Sequence[Any], pool: Any = None):
+        self.specs = leaf_specs(tensors)
+        self.nbytes = sum(s["nbytes"] for s in self.specs)
+        self._pool = pool
+        host = [isinstance(t, torch.Tensor) and not t.is_cuda for t in tensors]
+        self._lease = pool.try_acquire(self.specs) if pool is not None and any(host) else None
+        #: Whether the host leaves went into a recycled staging buffer (else clones).
+        self.recycled = self._lease is not None
+        #: Each leaf's snapshot, ``None`` for a host leaf already in the lease.
         self._tensors: list = []
-        for t in tensors:
-            if isinstance(t, torch.Tensor):
+        for i, t in enumerate(tensors):
+            if self.recycled and host[i]:
+                self._lease.fill(i, t.detach())
+                t = None
+            elif isinstance(t, torch.Tensor):
                 t = t.detach().clone(memory_format=torch.contiguous_format)
             self._tensors.append(t)
         #: Each leaf's card, or None for a host leaf.
@@ -260,14 +278,12 @@ class HostSnapshot:
         self._snapshotted = {d: torch.cuda.current_stream(d).record_event()
                              for d in set(self._cards) - {None}}
         self._d2h: dict = {}
-        self.specs = leaf_specs(self._tensors)
-        self.nbytes = sum(s["nbytes"] for s in self.specs)
-        #: Lease acquisition is LAZY (first resolve, i.e. on the background
-        #: thread): the foreground enqueue path never pays the miss-path
-        #: allocation, nor blocks when both double-buffer slots are still
-        #: leased to earlier saves' background halves.
-        self._pool = pool
-        self._lease = None
+        #: The card leaves' copies are enqueued at the first resolve, on the
+        #: background thread; without a lease from the foreground, that is also when
+        #: the lease is acquired: the foreground never pays the miss-path allocation,
+        #: nor blocks when both double-buffer slots are still leased to earlier saves'
+        #: background halves.
+        self._staged = False
         self._released = False
         self._resolved: list[Optional[np.ndarray]] = [None] * len(self._tensors)
 
@@ -275,14 +291,15 @@ class HostSnapshot:
         return len(self._resolved)
 
     def _ensure_lease(self):
-        if self._lease is None and not self._released:
+        if not self._staged and not self._released:
             from tpu_resiliency_torch.checkpoint.staging import StagingLease
 
-            lease = (
-                self._pool.acquire(self.specs) if self._pool is not None
-                else StagingLease.unpooled(self.specs)
-            )
-            self._lease = lease
+            if self._lease is None:
+                self._lease = (
+                    self._pool.acquire(self.specs) if self._pool is not None
+                    else StagingLease.unpooled(self.specs)
+                )
+            lease = self._lease
             for device, event in self._snapshotted.items():
                 side = _side_stream(device)
                 side.wait_event(event)
@@ -292,10 +309,11 @@ class HostSnapshot:
                 if isinstance(t, torch.Tensor) and t.is_cuda:
                     with torch.cuda.stream(_side_stream(t.device)):
                         lease.fill(i, t)
-                else:
+                elif t is not None:
                     lease.fill(i, t)
             for device, (_, end) in self._d2h.items():
                 end.record(_side_stream(device))
+            self._staged = True
         return self._lease
 
     def resolve(self, i: int) -> np.ndarray:
@@ -507,13 +525,15 @@ class PyTreeStateDict:
         snapshot to pinned host memory leaf by leaf.
 
         The caller-visible cost is enqueue: one device ``clone`` per card leaf on the
-        current stream and one event, no host synchronize. ``pool`` (a
+        current stream and one event, no host synchronize, and one host copy per CPU
+        leaf. ``pool`` (a
         :class:`~tpu_resiliency_torch.checkpoint.staging.HostStagingPool`) stages the
         leaves into recycled pinned buffers so steady-state saves allocate nothing
-        large; the lease is acquired lazily at first resolve (on the background
-        thread) and the snapshot owns it — ``release()`` when the background half is
-        done. ``self`` keeps its tensors untouched (devices are recorded for a later
-        restore)."""
+        large: the CPU leaves are copied straight into a released lease when the pool
+        holds one, else cloned and the lease is acquired lazily at first resolve (on
+        the background thread); the snapshot owns it — ``release()`` when the
+        background half is done. ``self`` keeps its tensors untouched (devices are
+        recorded for a later restore)."""
         if self._tensors is None:
             raise CheckpointError("pop_tensors() before copy_tensors_to_host_async()")
         self._shardings = [
