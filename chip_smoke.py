@@ -129,48 +129,52 @@ printing one JSON line that carries the card's name and power limit:
    that first synchronize is printed, the least a process restart pays. Beside it,
    ``DEVICE_ERROR`` on one rank: the trap kernel's sticky error must turn the
    liveness probe ``False`` and ``CudaHealthCheck`` into ``HealthCheckError``, and the
-   Wrapper must exclude the rank with attempts [0]. And (d) one rank under the
-   Wrapper (its default timeouts) whose ``all_reduce`` in a one-process NCCL group
-   (2 s timeout) is queued behind 6 s of ``torch.cuda._sleep``: NCCL's watchdog
-   times it out, the step raises on seeing it unfinished, and the rank must live
-   through the abort and finish iteration 1 in a new NCCL group within the
-   Wrapper's barrier timeout (120 s). Printed: that restart's wall time, split.
+   Wrapper must exclude the rank with attempts [0]. And (d) one rank under the Wrapper
+   (its default timeouts) whose ``all_reduce`` in a one-process NCCL group (2 s timeout,
+   no flight-recorder dump: ``NCCL_DUMP_ENV``) is queued behind 6 s of
+   ``torch.cuda._sleep``: NCCL's watchdog times it out, the step raises on seeing it
+   unfinished, and the rank must live through the abort and finish iteration 1 in a new
+   NCCL group within the Wrapper's barrier timeout (120 s). Printed: that restart's wall
+   time, split.
    The fault kernels' build seconds and ptxas lines are on this line; they are not
    TPU kernels and have no row on the ``kernels`` line. The processes the run
    started must be gone 30 s after the phase (what is left is killed and counted):
    ``main`` stamps the run in the environment (``RUN_ENV``) and starts over in its
-   own place, so every process it starts holds the stamp, and only those are reaped.
+   own place, so every process it starts holds the stamp, and only those are reaped
+   (it also sets ``PYTHONPYCACHEPREFIX`` to ``build/pycache``, so that the run's
+   interpreters share one bytecode cache).
 13. ``checkpoint_path``: local and async checkpointing on the card, on the one-rank
-   shard of BASELINE config 5's Llama-3-8B that a 16-rank job holds (each leaf of
-   ``init_params`` cut to 1/16 along its leading axis: 2 layers, ``embed`` 8016 rows,
-   ``lm_head`` 256 rows, ``final_norm`` 256): f32 parameters, AdamW's ``mu`` and ``nu``
-   (6,022,695,936 B), a step counter and a bf16 copy of ``embed``, from a seeded CUDA
-   generator. It first prints the host memory available and the free disk of its
-   temporary directory, and fails if they cannot hold what it writes (the state is
-   never shrunk). First the link's yardstick: a plain ``copy_`` of the same bytes into
-   one pinned buffer. (a) ``LocalCheckpointManager.save(..., is_async=True)`` three
-   times, every leaf updated in place (``add_`` of seeded noise) right after each
-   ``save()`` returns; each container must load onto the card bit-identical (as integer
-   views) to a blocking host copy taken before its save; device memory after finalize
-   within 1 MiB of before; the staging pool at least 1 hit and at most 2 misses. Then
-   the blocking engine (``pipelined=False``: ``copy_tensors_to_host``, then the save)
-   on the same state; the pipelined foreground window must be at most 0.25x its
-   (``tests/checkpoint/test_ckpt_save_perf.py``'s gate). Printed: the foreground window
-   (host clock and CUDA events), save to finalized container, the D2H GB/s (the side
-   stream's device time) beside the yardstick's, the background stream's GB/s, the
-   blocking engine's write GB/s, the pool, device memory, and the snapshot design's
-   cost (its extra device bytes and the device time of its clones, which the next
-   step waits behind). (b) Two ranks in fresh interpreters on the one card, each
-   holding a 1/32 shard (3,011,347,968 B), save once with ``CliqueReplicationStrategy``
-   over the port's store and a ``TreeLayout``; rank 1's directory is wiped and both
-   restore onto the card in fresh interpreters, rank 1 from rank 0's mirror,
-   bit-identical; then ``load_resharded_tree`` of the two containers on rank 0's disk
-   onto one rank must equal their concatenation; no process may be left. (c)
-   ``run_training`` with ``HierarchicalCheckpointCallback`` (local tier every 2 steps,
-   async) over 2 steps of (a)'s state with in-place updates; ``restore_latest`` must
-   bring back step 2's values on the card (6 steps before ``injob_path`` was added, 4
-   before ``graft_path``; cut to keep the script within its time). The checkpoint path launches none of the
-   median kernels; their counts are zeroed before it and printed.
+   shard of BASELINE config 5's Llama-3-8B that a 32-rank job holds (each leaf of
+   ``init_params`` cut to 1/32 along its leading axis: 1 layer, ``embed`` 4008 rows,
+   ``lm_head`` 128 rows, ``final_norm`` 128): f32 parameters, AdamW's ``mu`` and ``nu``
+   (3,011,347,968 B), a step counter and a bf16 copy of ``embed``, from a seeded CUDA
+   generator (the 1/16 shard of a 16-rank job, twice the bytes, until the script's time
+   asked for a depth cut). It first prints the host memory available and the free disk
+   of its temporary directory, and fails if they cannot hold what it writes (the state
+   is never shrunk to fit them). First the link's yardstick: a plain ``copy_`` of the
+   same bytes into one pinned buffer. (a) ``LocalCheckpointManager.save(...,
+   is_async=True)`` three times, every leaf updated in place (``add_`` of seeded noise)
+   right after each ``save()`` returns; each container must load onto the card
+   bit-identical (as integer views) to a blocking host copy taken before its save;
+   device memory after finalize within 1 MiB of before; the staging pool at least 1 hit
+   and at most 2 misses. Then the blocking engine (``pipelined=False``:
+   ``copy_tensors_to_host``, then the save) on the same state; the pipelined foreground
+   window must be at most 0.25x its (``tests/checkpoint/test_ckpt_save_perf.py``'s
+   gate). Printed: the foreground window (host clock and CUDA events), save to finalized
+   container, the D2H GB/s (the side stream's device time) beside the yardstick's, the
+   background stream's GB/s, the blocking engine's write GB/s, the pool, device memory,
+   and the snapshot design's cost (its extra device bytes and the device time of its
+   clones, which the next step waits behind). (b) Two ranks in fresh interpreters on the
+   one card, each holding a 1/32 shard (3,011,347,968 B), save once with
+   ``CliqueReplicationStrategy`` over the port's store and a ``TreeLayout``; rank 1's
+   directory is wiped and both restore onto the card in fresh interpreters, rank 1 from
+   rank 0's mirror, bit-identical; then ``load_resharded_tree`` of the two containers on
+   rank 0's disk onto one rank must equal their concatenation; no process may be left.
+   (c) ``run_training`` with ``HierarchicalCheckpointCallback`` (local tier every 2
+   steps, async) over 2 steps of (a)'s state with in-place updates; ``restore_latest``
+   must bring back step 2's values on the card (6 steps before ``injob_path`` was added,
+   4 before ``graft_path``; cut to keep the script within its time). The checkpoint path
+   launches none of the median kernels; their counts are zeroed before it and printed.
 14. ``injob_path``: fault tolerance and the in-job restart on the card. Each scenario
    is a fresh process tree: the port's launcher (``python -m
    tpu_resiliency_torch.launcher.launch --nproc-per-node 1 --monitor-interval 0.1
@@ -416,6 +420,8 @@ import numpy as np
 from tpu_resiliency_torch.bench import (  # config 4 and bench.py's seeded telemetry
     R, S, SLOW_FRACTION, SLOWDOWN, W, f1, make_telemetry)
 
+T_START = time.perf_counter()  # the script's clock, at import
+PYCACHE = Path(__file__).resolve().parent / "build" / "pycache"  # the run's bytecode cache
 LONG_W = 512  # the long-window path
 LONG_PARTIAL = 300  # pushes before its second report
 CPU_RANKS = 256  # ranks of the CPU comparison of the long-window run
@@ -724,9 +730,8 @@ def flagged(report, n_ranks):
 #: Llama-3-8B's widths, the leaf shapes of ``TransformerConfig.llama3_8b()`` and
 #: ``init_params`` (``tpu_resiliency/models/transformer.py:52-99``), copied as numbers.
 LLAMA3_8B = dict(d=4096, q=4096, kv=1024, ff=14336, vocab=128256)
-#: The 1/16 shard of a 16-rank job (BASELINE config 5): each leaf cut along its
-#: leading axis; the 1/32 shard each of ``checkpoint_path`` (b)'s two ranks holds.
-SHARD_16 = dict(LLAMA3_8B, n_layers=2, embed_rows=8016, head_rows=256, norm=256)
+#: The 1/32 shard of a 32-rank job (BASELINE config 5's model): each leaf cut along
+#: its leading axis; ``checkpoint_path``'s state and each of its (b)'s two ranks.
 SHARD_32 = dict(LLAMA3_8B, n_layers=1, embed_rows=4008, head_rows=128, norm=128)
 INT_VIEWS = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
 
@@ -805,7 +810,9 @@ class Smoke:
         self.card = card
 
     def emit(self, phase: str, **fields) -> None:
-        print(json.dumps({"phase": phase, "card": self.card, **fields}), flush=True)
+        """One JSON line for ``phase``; ``t_s`` is the script's clock at the line."""
+        print(json.dumps({"phase": phase, "card": self.card, **fields,
+                          "t_s": time.perf_counter() - T_START}), flush=True)
 
     # -- timing ------------------------------------------------------------
 
@@ -1102,6 +1109,8 @@ TIMEOUT_WRAPPER_KW = dict(RESTART_WRAPPER_KW, soft_timeout=60.0, hard_timeout=90
                           completion_timeout=120.0)
 NCCL_GROUP_TIMEOUT_S = 2.0  # part (d)'s group timeout
 NCCL_BUSY_S = 6.0  # how long part (d) keeps the card busy ahead of its collective
+#: Part (d)'s NCCL settings: no flight-recorder dump on a timeout, and no wait for one.
+NCCL_DUMP_ENV = {"TORCH_NCCL_DUMP_ON_TIMEOUT": "0", "TORCH_NCCL_WAIT_TIMEOUT_DUMP_MILSEC": "0"}
 HANG_CHILD = """
 import json, os, sys, threading, time
 
@@ -1208,6 +1217,9 @@ import json, logging, os, socket, sys, time
 
 os.environ.update(RANK="0", WORLD_SIZE="1", TPU_RESILIENCY_STORE_HOST="127.0.0.1",
                   TPU_RESILIENCY_STORE_PORT=sys.argv[1])
+# No flight-recorder dump on the timeout: its wait for the dump held the group's
+# teardown about a minute (NCCL_DUMP_ENV).
+os.environ.update(json.loads(sys.argv[3]))
 import torch
 import torch.distributed as dist
 
@@ -1615,7 +1627,7 @@ def restart_path(smoke, rows, names, main_mask, built_faults):
     (fresh_rc, (fresh_start, _), fresh, fresh_err), (erc, _, eout, eerr), \
         (trc, _, tout, terr) = run_children(
             [(FRESH_CHILD, []), (ERROR_CHILD, [free_port(), json.dumps(error_kw)]),
-             (TIMEOUT_CHILD, [free_port(), json.dumps(timeout_kw)])],
+             (TIMEOUT_CHILD, [free_port(), json.dumps(timeout_kw), json.dumps(NCCL_DUMP_ENV)])],
             timeout=TIMEOUT_WRAPPER_KW["barrier_timeout"] + 60.0)
     if fresh_rc != 0 or fresh.get("RESULT", [{}])[0].get("sum") != 2048.0:
         raise AssertionError(f"a fresh process could not use the card: {fresh} {fresh_err}")
@@ -1658,7 +1670,7 @@ def restart_path(smoke, rows, names, main_mask, built_faults):
                      "spin_launches": out1["SPIN"][0]["launches"],
                      "fresh_process_after_kill": fresh["RESULT"][0]["sum"]},
         device_error=err,
-        nccl_timeout=dict(nccl_timeout, group_timeout_s=NCCL_GROUP_TIMEOUT_S,
+        nccl_timeout=dict(nccl_timeout, group_timeout_s=NCCL_GROUP_TIMEOUT_S, env=NCCL_DUMP_ENV,
                           busy_s=NCCL_BUSY_S, limit_s=TIMEOUT_WRAPPER_KW["barrier_timeout"]),
         fault_kernels={"source": "tpu_resiliency_torch/csrc/faults.cu",
                        "build_seconds": built_faults.build_seconds,
@@ -1669,8 +1681,7 @@ def restart_path(smoke, rows, names, main_mask, built_faults):
 
 CKPT_SAVES = (1, 2, 3)  # checkpoint_path (a): iterations, one optimizer step apart
 CKPT_CALLBACK_STEPS, CKPT_CALLBACK_EVERY = 2, 2  # checkpoint_path (c) (4 before graft_path)
-CKPT_STATE_F32_BYTES = 6_022_695_936  # the 1/16 shard's parameters, mu and nu
-CKPT_SHARD_32_BYTES = 3_011_347_968  # each rank's state in checkpoint_path (b)
+CKPT_SHARD_32_BYTES = 3_011_347_968  # the 1/32 shard's parameters, mu and nu
 #: checkpoint_path (b): one rank of a two-rank job on the one card, a fresh interpreter.
 #: argv: rank, store port, generation, "save" or "load", root, device, shard (JSON).
 CKPT_CHILD = """
@@ -1773,12 +1784,12 @@ def checkpoint_path(smoke):
     dev = torch.device("cuda")
     empty_host_cache = getattr(torch._C, "_host_emptyCache", lambda: None)
     sk.reset_launches()
-    state = ckpt_state(torch, llama_shard_shapes(**SHARD_16), seed=16, device=dev)
+    state = ckpt_state(torch, llama_shard_shapes(**SHARD_32), seed=16, device=dev)
     nbytes = ckpt_nbytes(state)
     f32 = sum(t.numel() * 4 for t in ckpt_leaves(state) if t.dtype == torch.float32)
-    if f32 != CKPT_STATE_F32_BYTES:
-        raise AssertionError(f"the 1/16 shard holds {f32} B of f32 state, not "
-                             f"{CKPT_STATE_F32_BYTES}")
+    if f32 != CKPT_SHARD_32_BYTES:
+        raise AssertionError(f"the 1/32 shard holds {f32} B of f32 state, not "
+                             f"{CKPT_SHARD_32_BYTES}")
     tmp = tempfile.mkdtemp(prefix="checkpoint-path-")
     # Held at once: (a)'s three check copies and two pinned staging leases, a
     # container loaded for the check; on disk: (a)'s three containers and the
@@ -2521,7 +2532,7 @@ def injob_path(smoke):
     return cold_loop + warm_loop + layered_loop
 
 
-MODEL_LAYERS = 2  # Llama-3-8B's widths, cut in depth only, as checkpoint_path cuts it
+MODEL_LAYERS = 2  # Llama-3-8B's widths, cut in depth only
 MODEL_PARAMS = 1_486_901_248  # 2 x 218,112,000 + embed and lm_head 525,336,576 each + 4096
 MODEL_SEQ = 2048  # batch 1 x 2048 tokens
 MODEL_STEPS = 30
@@ -4692,8 +4703,14 @@ def main() -> int:
 
         # cuBLAS reads its workspace setting when it starts: model_path's deterministic
         # replay needs it fixed (torch.use_deterministic_algorithms).
-        os.execve(sys.executable, sys.orig_argv, dict(
-            os.environ, **{RUN_ENV: uuid.uuid4().hex, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}))
+        env = dict(os.environ, **{RUN_ENV: uuid.uuid4().hex, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+                                  "PYTHONPYCACHEPREFIX": str(PYCACHE)})
+        # Bytecode is cached under the checkout's build/, so that of the many fresh
+        # interpreters the run starts only the first compiles torch's sources: an
+        # installation that writes no bytecode beside them (PYTHONDONTWRITEBYTECODE)
+        # otherwise pays that compile, about 8 s, in every interpreter.
+        env.pop("PYTHONDONTWRITEBYTECODE", None)
+        os.execve(sys.executable, sys.orig_argv, env)
 
     import torch
 
