@@ -37,7 +37,7 @@ OWN_DOCSTRING = {
     "launcher/park.py": "spares preload torch and warm no CUDA context",
     "launcher/proc.py": "workers are CUDA processes, not JAX ones",
     "launcher/launch.py": "names the port's CLI",
-    "utils/events.py": "names the port's copies of the stream's consumers",
+    "utils/events.py": "names the port's copies of the stream's consumers, and no @prof",
     "integrations/ft_callbacks.py": "the loop protocol is no longer JAX's",
     "integrations/preemption.py": "the agreement runs over the process group",
 }
@@ -377,6 +377,63 @@ CUDA_RUNTIME_CHECK = '''class CudaRuntimeCheck(HealthCheck):
 STORE_CALL_OLD = '            try:\n                framing.send_obj(self._sock, req)\n                resp = framing.recv_obj(self._sock)\n            except (ConnectionError, EOFError, OSError) as e:\n                try:\n                    self._sock.close()\n                except OSError:\n                    pass\n                self._sock = None\n                raise StoreTransportError(f"store transport failure: {e!r}") from e\n        return self._parse(req, resp)\n'
 STORE_CALL_NEW = '            try:\n                framing.send_obj(self._sock, req)\n                resp = framing.recv_obj(self._sock)\n            except (ConnectionError, EOFError, OSError) as e:\n                try:\n                    self._sock.close()\n                except OSError:\n                    pass\n                self._sock = None\n                raise StoreTransportError(f"store transport failure: {e!r}") from e\n            except BaseException:\n                # An exception raised into this thread mid-call (the in-process\n                # Wrapper\'s restart signal, a KeyboardInterrupt) leaves this call\'s\n                # reply unread on the socket, where the next call would read it as\n                # its own: drop the socket.\n                try:\n                    self._sock.close()\n                except OSError:\n                    pass\n                self._sock = None\n                raise\n        return self._parse(req, resp)\n'
 
+#: The reference's ``traced`` decorator, which no module of the port called; the span
+#: ring takes its place at the end of ``utils/tracing.py``.
+TRACED = '''def traced(source: str, name: Optional[str] = None):
+    """Decorator form of :func:`span` (``@prof``'s causal sibling: same timing
+    payload, but begin/end pairing and parent linkage instead of one record)."""
+
+    def deco(fn):
+        label = name or getattr(fn, "__name__", "call")
+
+        def wrapped(*args, **kwargs):
+            with span(source, label):
+                return fn(*args, **kwargs)
+
+        wrapped.__name__ = getattr(fn, "__name__", label)
+        wrapped.__wrapped__ = fn
+        return wrapped
+
+    return deco
+'''
+#: The span ring: the port's ``utils/tracing.py`` from this line to its end. Its
+#: behaviour is held by ``tests/test_torch_tracing_spans.py``.
+RING_MARKER = "# -- the span ring: spans kept in this process's memory"
+RING = RING_MARKER + (REPO / "tpu_resiliency_torch/utils/tracing.py").read_text().partition(
+    RING_MARKER)[2]
+#: The reference's ``@prof`` decorator, which no module of the port called.
+EVENTS_PROF = '''def prof(source: str, name: Optional[str] = None):
+    """Decorator: time the call, record a ``timing`` event with success/failure
+    (reference ``metrics/api.py`` ``@prof``)."""
+
+    def deco(fn: Callable):
+        label = name or getattr(fn, "__name__", "call")
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            except BaseException as e:
+                record(
+                    source, "timing", name=label,
+                    duration_s=time.perf_counter() - t0, ok=False, error=repr(e),
+                )
+                raise
+            record(
+                source, "timing", name=label,
+                duration_s=time.perf_counter() - t0, ok=True,
+            )
+            return out
+
+        wrapped.__name__ = getattr(fn, "__name__", label)
+        wrapped.__wrapped__ = fn
+        return wrapped
+
+    return deco
+
+
+'''
+
 #: Reasons shared by the edits of the repo-root scripts' copies.
 SCRIPT_USAGE = "the port's script runs as a module of the package"
 SCRIPT_ROOT = "the copy lies a directory deeper: the repo root is three levels up"
@@ -387,7 +444,21 @@ FLEET_JOB = ("each job's workers train the port's examples/resilient_training.py
 
 COPIES = {
     "utils/location.py": (),
-    "utils/tracing.py": (),
+    "utils/tracing.py": (
+        ("import os\n", "import itertools\nimport os\n", "the ring's span ids"),
+        ("from contextlib import contextmanager\n",
+         "from collections import deque\nfrom contextlib import contextmanager\n",
+         "the ring"),
+        ("    stack = _stack()\n    if stack:\n        return stack[-1]\n",
+         "    for sid in reversed(_stack()):\n"
+         "        if isinstance(sid, str):  # a ring span (an int id) never reaches the stream\n"
+         "            return sid\n",
+         "the stack also holds the ring's spans, which write no event: a stream record's "
+         "parent is the innermost stream span"),
+        (TRACED, RING,
+         "traced had no caller in the port; the span ring keeps spans inside a train step "
+         "in memory, where a stream span costs an id and two records"),
+    ),
     "utils/opstats.py": (),
     "utils/flight_recorder.py": (),
     "platform/chaos.py": (),
@@ -567,7 +638,10 @@ _probe_native = None
          "AsyncCheckpointer.load(path, rank=self.rank, device=self.device)", "placed on device"),
     ),
     # -- the observability slice: the launcher's detect, decide and act loop
-    "utils/events.py": (),
+    "utils/events.py": (
+        (EVENTS_PROF, "", "@prof had no caller in the port; the span ring "
+                          "(utils/tracing.py) times work in a step"),
+    ),
     "utils/metrics.py": (),
     "utils/timeseries.py": (),
     "utils/goodput.py": (),

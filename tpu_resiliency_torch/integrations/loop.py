@@ -1,7 +1,8 @@
 """Training-loop callback protocol: the L5 integration seam.
 
-A copy of ``tpu_resiliency/integrations/loop.py``: the protocol holds no JAX, so a
-PyTorch train loop takes it as it is.
+Port of ``tpu_resiliency/integrations/loop.py``: the protocol and the hook order are
+the reference's; ``run_training`` also marks each iteration's step for the span ring
+(``utils/tracing.py`` ``set_step``), so every ring span a step opens carries its step.
 
 The reference integrates via PyTorch-Lightning hooks (``ptl_resiliency/``); a plain
 train loop has no Trainer object, so the seam here is a minimal callback protocol
@@ -20,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Iterable, Optional
 
+from tpu_resiliency_torch.utils import tracing
 from tpu_resiliency_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -109,6 +111,7 @@ def run_training(
     try:
         while step < num_steps and not ctx.should_stop:
             ctx.step = step
+            tracing.set_step(step)
             runner.fire("on_step_start", ctx)
             ctx.state = step_fn(ctx.state, step)
             runner.fire("on_step_end", ctx)

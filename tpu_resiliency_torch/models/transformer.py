@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_resiliency_torch.platform.device import resolve_device
+from tpu_resiliency_torch.utils import tracing
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -492,18 +493,27 @@ def make_train_step_from_loss(bound_loss_fn, optimizer: Optional[Callable] = Non
     :func:`adamw`). ``init_opt_state(model)`` builds it over ``model.parameters()``;
     ``train_step(model, opt, tokens)`` runs forward, backward and the update in
     place, and returns ``(model, opt, loss)`` with the loss detached, in the
-    reference's ``(params, opt_state, loss)`` order."""
+    reference's ``(params, opt_state, loss)`` order.
+
+    Each step keeps three spans in the span ring (``utils/tracing.py``):
+    ``model.forward`` (``zero_grad`` and the loss), ``model.backward`` and
+    ``model.optimizer``, each with its device interval when the tokens are on the
+    card."""
     optimizer = optimizer or adamw()
 
     def init_opt_state(model: nn.Module) -> torch.optim.Optimizer:
         return optimizer(model.parameters())
 
     def train_step(model: nn.Module, opt: torch.optim.Optimizer, tokens: torch.Tensor):
-        opt.zero_grad(set_to_none=True)
+        device = tokens.device
         with sharding_context(model):
-            loss = bound_loss_fn(model, tokens)
-            loss.backward()
-            opt.step()
+            with tracing.ring_span("model.forward", device=device):
+                opt.zero_grad(set_to_none=True)
+                loss = bound_loss_fn(model, tokens)
+            with tracing.ring_span("model.backward", device=device):
+                loss.backward()
+            with tracing.ring_span("model.optimizer", device=device):
+                opt.step()
         if hasattr(loss, "full_tensor"):  # over a mesh: the global mean on every rank
             loss = loss.full_tensor()
         return model, opt, loss.detach()

@@ -36,6 +36,7 @@ from tpu_resiliency_torch.telemetry.interval_tracker import ReportIntervalTracke
 from tpu_resiliency_torch.telemetry.name_registry import NameRegistry
 from tpu_resiliency_torch.telemetry.reporting import Report, ReportGenerator
 from tpu_resiliency_torch.telemetry.ring_buffer import RingView, SignalRings
+from tpu_resiliency_torch.utils import tracing
 from tpu_resiliency_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -366,8 +367,15 @@ class Detector:
         then scores the global summary matrix on the device (every rank gets the
         global view; ``gather_on_rank0`` only controls whether non-zero ranks build
         the full Report or return None, for API parity with the reference).
-        Reference: ``generate_report`` (``straggler.py:228-245``).
+        Reference: ``generate_report`` (``straggler.py:228-245``). Kept in the span
+        ring as ``detector.report``: the summary, the scoring and the report built on
+        the host.
         """
+        with tracing.ring_span("detector.report"):
+            return cls._generate_report()
+
+    @classmethod
+    def _generate_report(cls) -> Optional[Report]:
         if not cls.initialized:
             raise ResiliencyError("Detector.initialize() must be called first")
         local = cls.local_summary()

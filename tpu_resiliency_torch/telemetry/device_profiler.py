@@ -26,6 +26,11 @@ name. The extraction is pure functions over :class:`EventRecord`.
 The profiler is process-global: a window cannot start while another
 ``torch.profiler`` session runs (``start`` raises), and a window left open must be
 stopped (``StragglerDetectionCallback.on_exception`` does).
+
+A window's own cost is kept in the span ring (``utils/tracing.py``): ``profiler.open``
+(the session's start, and on the card the synchronise and the settle) and
+``profiler.close`` (the session's stop, the parse and the fold), which counts the
+trace's ``records`` and the ``samples`` kept from them.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from tpu_resiliency_torch.platform.device import resolve_device
+from tpu_resiliency_torch.utils import tracing
 from tpu_resiliency_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -188,12 +194,13 @@ class DeviceTimeProfiler:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities)
-        prof.start()
-        self._prof = prof
-        self.active = True
-        if self.device.type == "cuda":
-            self._settle()
+        with tracing.ring_span("profiler.open"):
+            prof = profile(activities=activities)
+            prof.start()
+            self._prof = prof
+            self.active = True
+            if self.device.type == "cuda":
+                self._settle()
 
     def _settle(self) -> None:
         torch.cuda.synchronize(self.device)
@@ -206,21 +213,29 @@ class DeviceTimeProfiler:
             return
         prof, self._prof = self._prof, None
         self.active = False
-        prof.stop()
-        try:
-            records = records_from_kineto(prof.profiler.kineto_results.events())
-            dev = self.device.type
-            self._fold(self._samples, self._fresh, extract_program_times(records, dev))
-            if self.collect_ops:
-                self._fold(self._op_samples, self._op_fresh, extract_op_times(records, dev))
-        except Exception:
-            log.exception("device profile parse failed; window dropped")
+        with tracing.ring_span("profiler.close") as span:
+            prof.stop()
+            try:
+                records = records_from_kineto(prof.profiler.kineto_results.events())
+                dev = self.device.type
+                kept = self._fold(self._samples, self._fresh,
+                                  extract_program_times(records, dev))
+                if self.collect_ops:
+                    kept += self._fold(self._op_samples, self._op_fresh,
+                                       extract_op_times(records, dev))
+                span.count(records=len(records), samples=kept)
+            except Exception:
+                log.exception("device profile parse failed; window dropped")
 
     @staticmethod
-    def _fold(samples: dict[str, deque], fresh: dict[str, list[float]], times) -> None:
+    def _fold(samples: dict[str, deque], fresh: dict[str, list[float]], times) -> int:
+        """Fold ``times`` into the stats; returns the number of samples."""
+        n = 0
         for name, secs in times.items():
             samples.setdefault(name, deque(maxlen=MAX_SAMPLES_PER_PROGRAM)).extend(secs)
             fresh.setdefault(name, []).extend(secs)
+            n += len(secs)
+        return n
 
     def __enter__(self):
         self.start()

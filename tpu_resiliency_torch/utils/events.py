@@ -24,8 +24,6 @@ Design:
   node can share one file.
 - ``record(source, kind, **payload)``: fire-and-forget; a sink failure never
   breaks the workload (events are observability, not control flow).
-- ``@prof``: times a callable and records a ``timing`` event with success/failure,
-  the reference's ``@prof`` metric decorator.
 """
 
 from __future__ import annotations
@@ -306,36 +304,6 @@ def record(source: str, kind: str, **payload: Any) -> None:
             sink(ev)
         except Exception:
             log.debug("event sink failed", exc_info=True)
-
-
-def prof(source: str, name: Optional[str] = None):
-    """Decorator: time the call, record a ``timing`` event with success/failure
-    (reference ``metrics/api.py`` ``@prof``)."""
-
-    def deco(fn: Callable):
-        label = name or getattr(fn, "__name__", "call")
-
-        def wrapped(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                out = fn(*args, **kwargs)
-            except BaseException as e:
-                record(
-                    source, "timing", name=label,
-                    duration_s=time.perf_counter() - t0, ok=False, error=repr(e),
-                )
-                raise
-            record(
-                source, "timing", name=label,
-                duration_s=time.perf_counter() - t0, ok=True,
-            )
-            return out
-
-        wrapped.__name__ = getattr(fn, "__name__", label)
-        wrapped.__wrapped__ = fn
-        return wrapped
-
-    return deco
 
 
 def read_events(
