@@ -208,7 +208,19 @@ printing one JSON line that carries the card's name and power limit:
    ``expect_devices`` one past the count. The workers' ``loop`` launches go on the
    ``kernels`` line.
 
-15. ``model_path``: the model family on the card. (a) ``TransformerConfig.llama3_8b()``
+15. ``model_path``: the model family on the card. First its own line,
+   ``model_kernels``: the causal softmax kernel pair (``csrc/causal_softmax.cu``, which
+   the dense attention runs on bf16 q/k/v on the card) on seeded bf16 scores laid out as
+   ``transformer._attention_fused`` lays them for this model's attention (B 1, T 2048,
+   H 32, Hkv 8, dh 128), against the plain chain (``transformer._causal_softmax_plain``)
+   on the same card tensors: the probabilities identical in ``ATTN_SAME_SHARE`` of the
+   elements and within one bf16 step elsewhere, the scores' gradient within
+   ``ATTN_GRAD_RTOL`` of its largest magnitude, identical in 99% of the elements and
+   zero above the diagonal; then each kernel's device ms beside its bytes bound (the
+   traffic computed from the shape, at the HBM rate). The launch counts are zeroed
+   before (a)'s dense run and printed from it (each must be positive, the forward's at
+   least the backward's); both go on the ``kernels`` line. (a)
+   ``TransformerConfig.llama3_8b()``
    cut in depth only to 2 layers (1,486,901,248 parameters, f32 master weights, bf16
    compute), batch 1 x 2048 seeded tokens, ``torch.optim.AdamW(3e-4,
    weight_decay=0.01)``, 30 steps of ``run_training`` inside ``inprocess.Wrapper`` (a
@@ -256,7 +268,8 @@ printing one JSON line that carries the card's name and power limit:
    ``parallel.ring_attention.make_ring_attn_fn`` at sp = 1 on float32 q/k/v of B 1,
    T 2048, H 32, dh 128 must match ``transformer._attention`` within ``RING_ATOL``
    elementwise (bf16 printed beside); the dense loss with ``attn_fn=ring`` must lie
-   within ``RING_LOSS_RTOL`` of the default's, the e5m2 control outside it. (d)
+   within ``RING_LOSS_RTOL`` of the default's, the e5m2 control outside it, all three
+   taken on the weights as initialised, before (b)'s steps train them. (d)
    ``examples.moe_pipeline_training --steps 8 --fault-step 3`` in a fresh interpreter
    (one rank, a one-process NCCL group per iteration) must print ``RESUMED step=3``
    and ``DONE loss=``. (e) ``examples.inprocess_restart_train --world 2``: two fresh
@@ -399,7 +412,8 @@ printing one JSON line that carries the card's name and power limit:
    amortised ms and the ``times`` phase's. The children's launches go on the
    ``kernels`` line (``bench_path_launches``); the phase within 90 s.
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last line
+Then one ``{"kernels": [...]}`` line (the three window kernels, then the causal softmax
+forward and backward of ``model_kernels``), the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without a
 CUDA card, or without the rest of the repository beside it, it exits non-zero and
 prints no result.
@@ -2678,6 +2692,86 @@ def moe_path(torch, dev, mcfg, moe_batch, gen) -> dict:
                 tokens_per_s=moe_batch[0] * moe_batch[1] / (statistics.median(moe_ms) / 1e3))
 
 
+#: model_kernels: model_path's attention (B, T, H, Hkv, dh: Llama-3-8B at 1 x 2048).
+ATTN_SHAPE = (1, MODEL_SEQ, 32, 8, 128)
+ATTN_REPS = 20  # timed calls of each kernel
+#: The kernels against the plain chain: the probabilities identical in this share of
+#: elements and within one bf16 step elsewhere; the scores' gradient within this share
+#: of its largest magnitude (2 to 4 bf16 steps) and identical in 99% of elements.
+ATTN_SAME_SHARE = 0.999
+ATTN_GRAD_RTOL = 2.0 ** -6
+#: The causal softmax kernels' rows on the ``kernels`` line.
+ATTN_KERNELS = {
+    which: {"name": f"causal_softmax_{which}", "route": "cuda",
+            "source": "tpu_resiliency_torch/csrc/causal_softmax.cu", "replaces": None,
+            "fuses": "tpu_resiliency_torch/models/transformer.py _causal_softmax_plain"}
+    for which in ("forward", "backward")
+}
+
+
+def model_kernels(smoke) -> dict:
+    """Phase 15's first line: the causal softmax kernels (``ops/causal_softmax.py``) on
+    bf16 scores laid out as ``_attention_fused`` lays them at :data:`ATTN_SHAPE`,
+    against the plain chain (``transformer._causal_softmax_plain``) on the same card
+    tensors, then each kernel's device ms (the L2 flushed before each call) beside its
+    bytes bound. Returns each kernel's fields for the ``kernels`` line."""
+    import torch
+
+    from tpu_resiliency_torch.models import transformer as tfm
+    from tpu_resiliency_torch.ops import causal_softmax as csm
+    from tpu_resiliency_torch.ops import kernel_sweep
+
+    b, t, h, hkv, dh = ATTN_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q = torch.randn((b, hkv, h // hkv * t, dh), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, hkv, t, dh), generator=gen, device=dev).to(torch.bfloat16)
+    scores = torch.matmul(q, k.transpose(-1, -2))  # [B, Hkv, G * T, T], row r at r % T
+    dp = torch.randn(scores.shape, generator=gen, device=dev).to(torch.bfloat16)
+    del q, k
+    inv = csm.inverse_scale(dh)
+    probs, row_max, row_sum = csm.forward(scores, t, 0, inv)
+    grad = csm.backward(dp, scores, row_max, row_sum, t, 0, inv)
+    x = scores.detach().requires_grad_()
+    want = tfm._causal_softmax_plain(x.unflatten(-2, (-1, t)), dh).flatten(-3, -2)
+    (grad_want,) = torch.autograd.grad(want, x, dp)
+    ulps = (probs.view(torch.int16).int() - want.detach().view(torch.int16).int()).abs()
+    same, max_ulps = float((ulps == 0).double().mean()), int(ulps.max())
+    diff = (grad.float() - grad_want.float()).abs()
+    grad_err = float(diff.max() / grad_want.float().abs().max())
+    grad_same = float((diff == 0).double().mean())
+    above = torch.ones(t, t, dtype=torch.bool, device=dev).triu(1)
+    zeros_above = bool((grad.unflatten(-2, (-1, t))[..., above] == 0).all())
+    del x, want, grad_want, ulps, diff, probs, grad
+    if not (same >= ATTN_SAME_SHARE and max_ulps <= 1):
+        raise AssertionError(f"causal_softmax forward: {same:.6f} of the probabilities equal "
+                             f"the plain chain's, the rest within {max_ulps} bf16 steps")
+    if not (grad_err <= ATTN_GRAD_RTOL and grad_same >= 0.99 and zeros_above):
+        raise AssertionError(f"causal_softmax backward: {grad_err:.3g} of the largest gradient "
+                             f"off the plain chain's, {grad_same:.4f} equal, zeros above the "
+                             f"diagonal {zeros_above}")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows = scores.numel() // t
+    traffic = csm.traffic_bytes(rows, t, t, 0, scores.element_size())
+    calls = {"forward": lambda: csm.forward(scores, t, 0, inv),
+             "backward": lambda: csm.backward(dp, scores, row_max, row_sum, t, 0, inv)}
+    out = {}
+    for which, fn in calls.items():
+        out[which] = dict(
+            ATTN_KERNELS[which], ms=kernel_sweep.device_ms(fn, ATTN_REPS, flush),
+            events_ms=kernel_sweep.time_ms(fn, ATTN_REPS, flush), bytes=traffic[which],
+            bound_ms=traffic[which] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            shape=list(scores.shape))
+    out["forward"].update(identical_share=same, max_ulps=max_ulps)
+    out["backward"].update(max_rel_err=grad_err, identical_share=grad_same)
+    del scores, dp, row_max, row_sum, flush
+    torch.cuda.empty_cache()
+    smoke.emit("model_kernels", attention=dict(zip(("batch", "seq", "heads", "kv_heads",
+                                                    "head_dim"), ATTN_SHAPE)),
+               same_share_min=ATTN_SAME_SHARE, grad_rtol=ATTN_GRAD_RTOL, **out)
+    return out
+
+
 def model_path(smoke, device="cuda", dense=None, moe_cfg=None, seq=MODEL_SEQ,
                moe_batch=MOE_BATCH, ranks=R, bf16_rtol=MODEL_BF16_RTOL):
     """Phase 15: the MoE family, then the dense model at Llama-3-8B's width (2 layers)
@@ -2713,6 +2807,7 @@ def model_path(smoke, device="cuda", dense=None, moe_cfg=None, seq=MODEL_SEQ,
     )
     from tpu_resiliency_torch.models import moe
     from tpu_resiliency_torch.models import transformer as tfm
+    from tpu_resiliency_torch.ops import causal_softmax as csm
     from tpu_resiliency_torch.ops import scoring_kernels as sk
     from tpu_resiliency_torch.platform import distributed
     from tpu_resiliency_torch.telemetry import MeshTelemetry
@@ -2869,6 +2964,7 @@ def model_path(smoke, device="cuda", dense=None, moe_cfg=None, seq=MODEL_SEQ,
     os.environ.update(RANK="0", WORLD_SIZE="1", TPU_RESILIENCY_STORE_HOST="127.0.0.1",
                       TPU_RESILIENCY_STORE_PORT=str(free_port()))
     sk.reset_launches()
+    csm.reset_launches()
     deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -2878,6 +2974,7 @@ def model_path(smoke, device="cuda", dense=None, moe_cfg=None, seq=MODEL_SEQ,
             result = train()
             train_s = time.perf_counter() - t_train
         loop_launches = sk.fused_median_weights.launches_by_mode["loop"]
+        attn_launches = dict(csm.causal_softmax.launches_by_pass)
         nondeterministic = sorted({str(w.message).split(" does not have")[0][:120]
                                    for w in caught if "deterministic" in str(w.message)})
         peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -2955,6 +3052,8 @@ def model_path(smoke, device="cuda", dense=None, moe_cfg=None, seq=MODEL_SEQ,
                              f"{profiled_launches} launches in profiled steps; by (iteration, "
                              f"step): (launches, loop samples, kernel records) "
                              f"{samples_by_window}")
+    if cuda and not attn_launches["forward"] >= attn_launches["backward"] > 0:
+        raise AssertionError(f"the dense run's causal softmax launches {attn_launches}")
     if (cuda and loop_launches < 1) or not result["report_finite"]:
         raise AssertionError(f"the health reports launched the loop kernel {loop_launches} "
                              f"times, finite: {result['report_finite']}")
@@ -2984,7 +3083,7 @@ def model_path(smoke, device="cuda", dense=None, moe_cfg=None, seq=MODEL_SEQ,
         peak_memory_allocated=peak, peak_memory_reserved=peak_reserved,
         memory_first_step=rec["memory"], restart_wall_s=restart,
         loop_launches=loop_launches, loop_launches_in_profiled_steps=profiled_launches,
-        loop_op_samples=op_samples, profiled_steps=sorted(s for _, s in rec["windows"]),
+        causal_softmax_launches=attn_launches, loop_op_samples=op_samples, profiled_steps=sorted(s for _, s in rec["windows"]),
         kernel_records_by_window={f"{i}/{st}": v[2] for (i, st), v in samples_by_window.items()},
         preempt_step=rec["preempt_step"], signal_to_finalized_s=t["saved"] - t["signal"],
         preemption_save_s=rec["save_s"], host_copy_and_hash_s=rec["host_copy_and_hash_s"],
@@ -3012,8 +3111,9 @@ PIPE_STEPS = 5
 # (b) step 0's pipelined bf16 loss, and (c) the loss with ring attention, against the
 # unpipelined default forward of the same weights and tokens, relative; the same
 # forward of float8_e5m2-rounded weights, the control, must lie outside each. On the
-# H100 80GB HBM3 at 700 W (PERF.md): (b) 0.0 apart, its control 1.1e-4;
-# (c) 2.7e-5 (the ring keeps the softmax in float32), its control 6.9e-2.
+# H100 80GB HBM3 at 700 W (PERF.md): (b) 0.0 apart, its control 1.1e-4; (c) on the
+# weights as initialised, over token seeds 13-20, 3.8e-6 to 3.4e-5 apart (1.2e-5 at
+# seed 13; the ring keeps the softmax in float32), its control 2.2e-4 to 1.3e-3.
 PIPE_BF16_RTOL = 1e-5
 RING_LOSS_RTOL = 1e-4
 RING_SHAPE = (1, PARALLEL_SEQ, 32, 128)  # (c): B, T, H, dh of Llama-3-8B's attention
@@ -3135,6 +3235,19 @@ def parallel_model(torch, dev, cfg, pipe_batch, ring_shape, pipe_rtol, ring_rtol
         model = tfm.Transformer(cfg, seed=5, device=dev)
         gen = torch.Generator().manual_seed(13)
         tokens = torch.randint(0, cfg.vocab_size, pipe_batch, generator=gen).to(dev)
+        if "c" in parts:
+            # (c)'s losses on the weights as initialised: (b)'s steps train the model into
+            # memorising its two sequences, where the two losses sit 2e-5 to 1.2e-3 apart
+            # by token seed.
+            t0 = time.perf_counter()
+            ring = make_ring_attn_fn(mesh)
+            one = tokens[:1]
+            with torch.no_grad():
+                loss_default = float(tfm.loss_fn(model, one, cfg))
+                loss_ring = float(tfm.loss_fn(model, one, cfg, attn_fn=ring))
+            ring_control = e5m2_control(torch, model,
+                                        lambda: float(tfm.loss_fn(model, one, cfg, attn_fn=ring)))
+            seconds["c"] = time.perf_counter() - t0
         if "b" in parts:
             t0 = time.perf_counter()
             with torch.no_grad():
@@ -3162,7 +3275,6 @@ def parallel_model(torch, dev, cfg, pipe_batch, ring_shape, pipe_rtol, ring_rtol
             seconds["b"] = time.perf_counter() - t0
         if "c" in parts:
             t0 = time.perf_counter()
-            ring = make_ring_attn_fn(mesh)
             g = torch.Generator().manual_seed(17)
             q, k, v = (torch.randn(ring_shape, generator=g).to(dev) for _ in range(3))
             with torch.no_grad():
@@ -3171,19 +3283,15 @@ def parallel_model(torch, dev, cfg, pipe_batch, ring_shape, pipe_rtol, ring_rtol
                 err_bf16 = float((ring(qb, kb, vb).float()
                                   - tfm._attention(qb, kb, vb).float()).abs().max())
                 del q, k, v, qb, kb, vb
-                one = tokens[:1]
-                loss_default = float(tfm.loss_fn(model, one, cfg))
-                loss_ring = float(tfm.loss_fn(model, one, cfg, attn_fn=ring))
-            control = e5m2_control(torch, model,
-                                   lambda: float(tfm.loss_fn(model, one, cfg, attn_fn=ring)))
             if err > RING_ATOL:
                 raise AssertionError(f"(c) ring attention off the dense by {err} (atol {RING_ATOL})")
             check = relative_check("(c) the loss with ring attention", loss_ring, loss_default,
-                                   control, ring_rtol)
+                                   ring_control, ring_rtol)
             fields["ring"] = dict(shape=list(ring_shape), sp=1, max_abs_err_f32=err,
                                   atol=RING_ATOL, max_abs_err_bf16=err_bf16,
-                                  loss_default=loss_default, loss_ring=loss_ring, **check)
-            seconds["c"] = time.perf_counter() - t0
+                                  loss_default=loss_default, loss_ring=loss_ring,
+                                  losses_before_training=True, **check)
+            seconds["c"] += time.perf_counter() - t0
         del model
     finally:
         distributed.shutdown_for_restart()
@@ -5185,9 +5293,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     path_launches["loop"] += injob_path(smoke)
 
-    # 15. model path: the health reports' loop launches ------------------------------
+    # 15. model path: the causal softmax kernels, then the health reports' loop launches
+    # and the dense run's causal softmax launches ---------------------------------------
     torch.cuda.empty_cache()
+    attn_kernels = model_kernels(smoke)
     path_launches["loop"] += model_path(smoke)
+    from tpu_resiliency_torch.ops import causal_softmax as csm
+
+    for which, n in csm.causal_softmax.launches_by_pass.items():
+        attn_kernels[which].update(launches=n, card=card)
 
     # 16. parallel path: the mesh telemetry workers' loop launches --------------------
     torch.cuda.empty_cache()
@@ -5232,6 +5346,7 @@ def main() -> int:
                     "of the window's sum of |x|",
             card=card,
         ))
+    kernels.extend(attn_kernels.values())
     print(json.dumps({"kernels": kernels, "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -4,12 +4,18 @@ local tier, the replayed losses bit for bit), the straggler callback's profiled
 windows, the preemption notice the process sends itself at step 18 and the save at
 that agreed step, loaded in a fresh interpreter and held by SHA-256 of every leaf
 against the state at the save; then the MoE family's checks. It runs in a fresh
-interpreter, as the phase's Wrapper starts monitor processes and takes SIGTERM."""
+interpreter, as the phase's Wrapper starts monitor processes and takes SIGTERM.
+
+The ``gpu`` test runs the phase's ``model_kernels`` line on the card: the causal
+softmax kernels against the plain chain at the model's attention shape."""
 
 import json
 import os
 import subprocess
 import sys
+
+import pytest
+import torch
 
 from tests.torch_port_tests import REPO
 
@@ -41,7 +47,21 @@ def test_model_path_on_the_cpu():
     assert dense["fresh_interpreter"]["devices"] == ["cpu"]
     assert dense["losses"][-1] < dense["losses"][0] and len(dense["losses"]) == 19
     assert dense["profiled_steps"] == [0, 10, 10]
+    assert dense["causal_softmax_launches"] == {"forward": 0, "backward": 0}  # CPU tensors
     assert set(dense["restart_wall_s"]) == {"raise_to_first_step", "abort", "health_check",
                                             "reinit", "restore", "other"}
     assert moe["most_tokens_per_expert_row"] <= moe["capacity"]
     assert moe["losses"][-1] < moe["losses"][0]
+
+
+@pytest.mark.gpu
+def test_model_kernels_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+
+    out = cs.model_kernels(cs.Smoke(torch, torch.cuda.get_device_name(0)))
+    assert out["forward"]["identical_share"] >= cs.ATTN_SAME_SHARE
+    assert out["backward"]["max_rel_err"] <= cs.ATTN_GRAD_RTOL
+    for which in ("forward", "backward"):
+        assert 0 < out[which]["bound_ms"] <= out[which]["ms"]

@@ -6,9 +6,9 @@ workload. The math is the reference's, op for op:
 - parameters stacked on a leading ``[L]`` axis, as the reference's pytree holds them;
   the layer stack is a Python loop over ``L`` where the reference runs ``lax.scan``,
 - float32 master weights cast to ``cfg.dtype`` (bfloat16 by default) at each product,
-  float32 scores, the ``-1e30`` causal mask and the softmax, RoPE in the split-half
-  layout, GQA grouped in the einsum (repeated K/V never materialized), SwiGLU,
-  RMSNorm,
+  the scores scaled, masked with ``-1e30`` above the causal diagonal and softmaxed in
+  float32, RoPE in the split-half layout, GQA grouped in the einsum (repeated K/V never
+  materialized), SwiGLU, RMSNorm,
 - ``torch.optim.AdamW(lr=3e-4, weight_decay=0.01)``, the counterpart of
   ``optax.adamw(3e-4, weight_decay=0.01)``.
 
@@ -23,8 +23,17 @@ tree of tensors (:meth:`Transformer.tree`). :func:`params_from_reference` and
 ``count`` against torch's ``exp_avg``/``exp_avg_sq``/``step``).
 
 The products stay ``torch.matmul``/``torch.einsum``: the reference computes them
-outside any Pallas kernel. Every entry point that makes tensors takes ``device=None``,
-which means the CUDA card (raises without one); ``device="cpu"`` runs on the CPU.
+outside any Pallas kernel. Between the two products of the dense attention
+(:func:`_attention`), q/k/v of bf16 or fp16 on the card take the hand-written causal
+softmax (``ops/causal_softmax.py``, ``csrc/causal_softmax.cu``) in place of the float32
+chain: one read and one write of each bf16 score row forward and backward, every
+rounding point of the plain chain kept. CPU tensors and float32 compute run the
+plain body (einsums, the float32 score tensor, ``torch.softmax``), the reference the
+tests hold the port against. ``_attention.calls`` counts the calls by path, and each
+train step attaches its step's counts to its ``model.forward`` span.
+
+Every entry point that makes tensors takes ``device=None``, which means the CUDA card
+(raises without one); ``device="cpu"`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_resiliency_torch.ops import causal_softmax as csoftmax
 from tpu_resiliency_torch.platform.device import resolve_device
 from tpu_resiliency_torch.utils import tracing
 
@@ -277,30 +287,78 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def _attention(q, k, v, causal_offset: int = 0):
-    """Plain causal attention. q: [B, T, H, dh]; k/v: [B, T, Hkv, dh] with
-    H % Hkv == 0 (GQA): query heads are grouped per KV head in the einsum itself,
-    so repeated K/V are never materialized.
+    """Causal attention. q: [B, Tq, H, dh]; k/v: [B, Tk, Hkv, dh] with
+    H % Hkv == 0 (GQA): query heads are grouped per KV head, so repeated K/V are
+    never materialized. Query position ``i`` attends to keys ``<= i + causal_offset``.
+
+    q/k/v of bf16 or fp16 on the card take :func:`_attention_fused`, whatever their
+    shape; anything else runs :func:`_attention_plain`. Each call adds one to
+    ``_attention.calls["fused"]`` or ``["plain"]``.
 
     DTensors run on their local heads (:func:`_attention_on_local_heads`): the
     grouping reshape and the einsums' flattening views would flatten the head dim,
     which is sharded over ``tp``, and torch 2.11 refuses that view."""
     if hasattr(q, "device_mesh"):
         return _attention_on_local_heads(q, k, v, causal_offset)
+    if q.is_cuda and q.dtype in csoftmax.DTYPE_CODES and k.dtype == v.dtype == q.dtype:
+        _attention.calls["fused"] += 1
+        return _attention_fused(q, k, v, causal_offset)
+    _attention.calls["plain"] += 1
+    return _attention_plain(q, k, v, causal_offset)
+
+
+def _attention_plain(q, k, v, causal_offset: int = 0):
+    """The plain body of :func:`_attention`: the query groups in the einsums and
+    :func:`_causal_softmax_plain` between them."""
     dh = q.shape[-1]
     b, tq, h, _ = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
+    hkv = k.shape[2]
     qg = q.reshape(b, tq, hkv, h // hkv, dh)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() / math.sqrt(dh)
-    qpos = torch.arange(tq, device=q.device)[:, None] + causal_offset
-    kpos = torch.arange(tk, device=q.device)[None, :]
-    mask = qpos >= kpos
-    scores = torch.where(mask[None, None, None], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = _causal_softmax_plain(torch.einsum("bqhgd,bkhd->bhgqk", qg, k), dh, causal_offset)
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(b, tq, h, dh)
 
 
+def _causal_softmax_plain(scores, head_dim: int, causal_offset: int = 0):
+    """The plain chain over scores ``[..., Tq, Tk]``: float32, divided by
+    ``sqrt(head_dim)``, ``-1e30`` where key ``k > q + causal_offset``, ``torch.softmax``
+    in float32, the probabilities rounded back to the scores' type. The CPU and float32
+    compute run it; on the card the causal softmax kernel takes its place."""
+    tq, tk = scores.shape[-2:]
+    x = scores.float() / math.sqrt(head_dim)
+    qpos = torch.arange(tq, device=scores.device)[:, None] + causal_offset
+    kpos = torch.arange(tk, device=scores.device)[None, :]
+    x = torch.where(qpos >= kpos, x, -1e30)
+    return torch.softmax(x, dim=-1).to(scores.dtype)
+
+
+#: ``_attention``'s calls by the body they ran, since the process started.
+_attention.calls = {"fused": 0, "plain": 0}
+
+
+def _attention_fused(q, k, v, causal_offset: int = 0):
+    """:func:`_attention` with the scores' rows contiguous: Q as ``[B, Hkv, G * Tq,
+    dh]`` (head ``hkv * G + g``, the plain body's grouping) against K as ``[B, Hkv,
+    dh, Tk]`` gives bf16 scores ``[B, Hkv, G * Tq, Tk]`` in one product, the causal
+    softmax (``ops/causal_softmax.py``) gives the probabilities in the same layout,
+    and a product with V ``[B, Hkv, Tk, dh]`` the output. Only q/k/v are copied into
+    these layouts, never the scores; the products stay ``torch.matmul``. (The plain
+    body's einsums around the kernel give its products bit for bit, but took 21.5 ms
+    where these take 13.4, forward and backward, at the train cell's layer on an
+    H100.)"""
+    b, tq, h, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, tq, hkv, g, dh).permute(0, 2, 3, 1, 4).reshape(b, hkv, g * tq, dh)
+    kt = k.permute(0, 2, 1, 3).contiguous()
+    vt = v.permute(0, 2, 1, 3).contiguous()
+    scores = torch.matmul(qg, kt.transpose(-1, -2))
+    probs = csoftmax.causal_softmax(scores, tq, causal_offset, csoftmax.inverse_scale(dh))
+    out = torch.matmul(probs, vt)
+    return out.reshape(b, hkv, g, tq, dh).permute(0, 3, 1, 2, 4).reshape(b, tq, h, dh)
+
+
 def _attention_on_local_heads(q, k, v, causal_offset: int):
-    """:func:`_attention` of DTensor q/k/v: each rank runs the plain body on its own
+    """:func:`_attention` of DTensor q/k/v: each rank runs :func:`_attention` on its own
     batch rows (over ``dp``) and KV heads with their query groups (over ``tp``),
     with the whole sequence, and the result is placed so again. Attention is
     independent per KV head, and a rank's block of query heads is the groups of its
@@ -498,7 +556,8 @@ def make_train_step_from_loss(bound_loss_fn, optimizer: Optional[Callable] = Non
     Each step keeps three spans in the span ring (``utils/tracing.py``):
     ``model.forward`` (``zero_grad`` and the loss), ``model.backward`` and
     ``model.optimizer``, each with its device interval when the tokens are on the
-    card."""
+    card. ``model.forward`` counts the step's :func:`_attention` calls by path:
+    ``attention_fused`` and ``attention_plain``."""
     optimizer = optimizer or adamw()
 
     def init_opt_state(model: nn.Module) -> torch.optim.Optimizer:
@@ -507,9 +566,12 @@ def make_train_step_from_loss(bound_loss_fn, optimizer: Optional[Callable] = Non
     def train_step(model: nn.Module, opt: torch.optim.Optimizer, tokens: torch.Tensor):
         device = tokens.device
         with sharding_context(model):
-            with tracing.ring_span("model.forward", device=device):
+            with tracing.ring_span("model.forward", device=device) as span:
+                fused, plain = _attention.calls["fused"], _attention.calls["plain"]
                 opt.zero_grad(set_to_none=True)
                 loss = bound_loss_fn(model, tokens)
+                span.count(attention_fused=_attention.calls["fused"] - fused,
+                           attention_plain=_attention.calls["plain"] - plain)
             with tracing.ring_span("model.backward", device=device):
                 loss.backward()
             with tracing.ring_span("model.optimizer", device=device):
