@@ -157,12 +157,16 @@ class Transformer(nn.Module):
         self.embed = nn.Parameter(params["embed"])
         self.layers = nn.ParameterDict({k: nn.Parameter(v) for k, v in params["layers"].items()})
         self.final_norm = nn.Parameter(params["final_norm"])
-        self.lm_head = nn.Parameter(params["lm_head"])
+        if "lm_head" in params:  # absent where the head is tied to the embedding
+            self.lm_head = nn.Parameter(params["lm_head"])
 
     def tree(self) -> dict:
         """The parameters as the reference's nested tree (the tensors themselves)."""
-        return {"embed": self.embed, "layers": dict(self.layers.items()),
-                "final_norm": self.final_norm, "lm_head": self.lm_head}
+        tree = {"embed": self.embed, "layers": dict(self.layers.items()),
+                "final_norm": self.final_norm}
+        if "lm_head" in self._parameters:
+            tree["lm_head"] = self.lm_head
+        return tree
 
     def forward(self, tokens: torch.Tensor, **kw) -> torch.Tensor:
         return forward(self, tokens, self.cfg, **kw)
@@ -420,13 +424,18 @@ def adapt_attn_fn(attn_fn, causal_offset: int = 0):
 
 
 def _attn_block(cfg: TransformerConfig, x: torch.Tensor, lp: dict, cos, sin, attn_fn):
-    """Pre-norm GQA attention with residual; shared by the dense and MoE layers."""
+    """Pre-norm GQA attention with residual; shared by the dense, MoE and hybrid
+    layers. Where ``lp`` holds ``q_norm``/``k_norm`` (``[dh]``), q and k are RMS-normed
+    over each head's channels before RoPE."""
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     y = rms_norm(x, lp["attn_norm"])
     q = (y @ lp["wq"].to(y.dtype)).reshape(b, t, h, dh)
     k = (y @ lp["wk"].to(y.dtype)).reshape(b, t, hkv, dh)
     v = (y @ lp["wv"].to(y.dtype)).reshape(b, t, hkv, dh)
+    if "q_norm" in lp:
+        q = rms_norm(q, lp["q_norm"])
+        k = rms_norm(k, lp["k_norm"])
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attn_fn(q, k, v).reshape(b, t, h * dh)
@@ -435,7 +444,11 @@ def _attn_block(cfg: TransformerConfig, x: torch.Tensor, lp: dict, cos, sin, att
 
 def _layer(cfg: TransformerConfig, x: torch.Tensor, lp: dict, cos, sin, attn_fn):
     x = _attn_block(cfg, x, lp, cos, sin, attn_fn)
-    # MLP block (SwiGLU)
+    return _mlp_block(x, lp)
+
+
+def _mlp_block(x: torch.Tensor, lp: dict) -> torch.Tensor:
+    """Pre-norm SwiGLU MLP with residual; shared by the dense and hybrid layers."""
     y = rms_norm(x, lp["mlp_norm"])
     gate = F.silu(y @ lp["w_gate"].to(y.dtype))
     up = y @ lp["w_up"].to(y.dtype)
@@ -491,8 +504,11 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> 
 
 
 def head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head, float32 logits; a tree without ``lm_head`` ties the
+    head to the embedding (``embed`` transposed)."""
     x = rms_norm(x, params["final_norm"])
-    return (x @ params["lm_head"].to(x.dtype)).float()
+    w = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return (x @ w.to(x.dtype)).float()
 
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, *, attn_fn=None,

@@ -199,11 +199,19 @@ class SpanRecord:
     def duration_ms(self) -> float:
         return (self.end_ns - self.start_ns) * 1e-6
 
-    def count(self, **counts: int) -> None:
-        """Attach counts (``records=``, ``samples=``, ...) to the span."""
+    def count(self, **counts) -> None:
+        """Attach counts (``records=``, ``samples=``, ...) to the span. A count may be a
+        0-d device tensor: it is read when the ring is read (:func:`spans`), so attaching
+        it makes the host wait for nothing."""
         self.counts.update(counts)
 
     def _resolve(self) -> None:
+        for name, value in self.counts.items():
+            if hasattr(value, "item"):
+                try:
+                    self.counts[name] = value.item()
+                except RuntimeError:  # the device failed before the count was made
+                    self.counts[name] = None
         if self._events is None:
             return
         start, end = self._events
@@ -266,7 +274,7 @@ class _NullSpan:
     def __exit__(self, *exc) -> bool:
         return False
 
-    def count(self, **counts: int) -> None:
+    def count(self, **counts) -> None:
         pass
 
 
@@ -304,7 +312,8 @@ def set_capacity(capacity: int = RING_CAPACITY) -> None:
 
 def spans(name: Optional[str] = None) -> list[SpanRecord]:
     """The ring's records (only ``name``'s, if given) in the order they ended, their
-    device intervals resolved: this waits for the device to run each span's end."""
+    device intervals and device counts resolved: this waits for the device to run
+    each span's end."""
     ring = _ring
     if ring is None:
         return []
